@@ -1,0 +1,80 @@
+"""Padded-CSR sparse batch of tensors (port of ``repro.data.sparse``).
+
+Binary feature sets are ``indices (n, max_nnz) int32`` plus a validity
+``mask (n, max_nnz) bool``; one batch is one of the paper's chunks of 10K
+sets.  ``from_lists`` builds it in numpy, then copies it to the device:
+through a pinned host buffer and a ``non_blocking`` copy on the current
+stream when the device is CUDA, so a loader thread can enqueue the copy of
+chunk i+1 while chunk i is hashed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseBatch:
+    """A batch of binary sets in padded-CSR form."""
+
+    indices: torch.Tensor                  # (n, max_nnz) int32, ids in [0, D)
+    mask: torch.Tensor                     # (n, max_nnz) bool
+    labels: Optional[torch.Tensor] = None  # (n,) float32 in {-1, +1}
+
+    @property
+    def n(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def max_nnz(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def nnz_per_row(self) -> torch.Tensor:
+        """(n,) int32 valid-lane counts -- the kernels' ``counts``."""
+        return self.mask.sum(dim=1, dtype=torch.int32)
+
+    def nbytes(self) -> int:
+        b = self.indices.numel() * 4 + self.mask.numel()
+        if self.labels is not None:
+            b += self.labels.numel() * 4
+        return b
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy -> tensor on ``device``; pinned + non_blocking for CUDA."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def from_lists(sets: Sequence[np.ndarray], labels: Optional[np.ndarray] = None,
+               max_nnz: Optional[int] = None, lane_multiple: int = 128, *,
+               device: DeviceLike = None) -> SparseBatch:
+    """Build a SparseBatch from a list of index arrays; nnz is padded to a
+    multiple of ``lane_multiple`` as in the reference."""
+    dev = resolve_device(device)
+    n = len(sets)
+    if max_nnz is None:
+        max_nnz = max((len(s) for s in sets), default=1) or 1
+    max_nnz = ((max_nnz + lane_multiple - 1) // lane_multiple) * lane_multiple
+    idx = np.zeros((n, max_nnz), np.int32)
+    msk = np.zeros((n, max_nnz), bool)
+    for i, s in enumerate(sets):
+        m = min(len(s), max_nnz)
+        idx[i, :m] = np.asarray(s[:m], np.int32)
+        msk[i, :m] = True
+    lab = None if labels is None else to_device(
+        np.ascontiguousarray(labels, np.float32), dev)
+    return SparseBatch(indices=to_device(idx, dev), mask=to_device(msk, dev),
+                       labels=lab)

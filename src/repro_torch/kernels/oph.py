@@ -1,0 +1,175 @@
+"""One Permutation Hashing bin minima: the CUDA kernels and their plain
+versions (port of ``repro.kernels.oph``).
+
+``oph2u`` / ``oph4u`` take a padded batch ``indices (n, nnz) int32`` with
+per-row valid counts ``counts (n,) int32`` and ONE 2U / 4U hash function,
+and return ``(n, 2^bin_bits)`` int32 uint32 bit patterns: the minimum
+in-bin offset of each bin, EMPTY (0xFFFFFFFF) where a bin got no element,
+or with ``code_b > 0`` the (code_b+1)-bit sentinel codes (EMPTY -> 2^code_b).
+
+They dispatch on the tensors' device: CPU tensors go to the plain PyTorch
+versions (``*_plain``), CUDA tensors to the kernels of ``csrc/oph.cu``
+(``*_cuda``, which raise on anything they do not take).  Each CUDA wrapper
+counts its launches in ``<wrapper>.launches``.  Unlike the TPU kernels no
+bin padding to 128 lanes is kept: the output has exactly k columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashing import hash2u_apply, hash4u_apply
+from repro_torch.core.oph import binned_min, split_hash
+from repro_torch.core.u32 import EMPTY, narrow
+from repro_torch.device import same_device
+from repro_torch.kernels import build
+
+OPH_THREADS = 256     # threads per block (one block per row); a multiple of 32
+MAX_BIN_BITS = 13     # k <= 8192 bins: 32 KB of shared memory per block
+_PLAIN_ELEMS = 1 << 27   # int64 elements per plain-version row chunk (1 GB)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _oph_plain(hash_fn, indices, counts, *, s, bin_bits, code_b):
+    n, nnz = indices.shape
+    counts = counts.reshape(-1).to(torch.int64)
+    col = torch.arange(nnz, device=indices.device)
+    outs = []
+    step = max(1, _PLAIN_ELEMS // max(1, nnz))
+    for r0 in range(0, n, step):
+        idx = indices[r0:r0 + step]
+        valid = col[None, :] < counts[r0:r0 + step, None]
+        bins, offs = split_hash(hash_fn(idx), s, bin_bits)
+        sig = binned_min(bins, offs, valid, 1 << bin_bits)
+        if code_b > 0:
+            sig = torch.where(sig == EMPTY, 1 << code_b, sig & ((1 << code_b) - 1))
+        outs.append(sig)
+    if not outs:
+        return torch.empty((0, 1 << bin_bits), dtype=torch.int32,
+                           device=indices.device)
+    return narrow(torch.cat(outs))
+
+
+def oph2u_plain(indices, counts, a1, a2, *, s: int, bin_bits: int,
+                variant: str = "high", code_b: int = 0) -> torch.Tensor:
+    """Plain PyTorch ``oph2u``: raw (or sentinel-coded) bin minima."""
+    fn = lambda idx: hash2u_apply(idx, a1[0], a2[0], s, variant)
+    return _oph_plain(fn, indices, counts, s=s, bin_bits=bin_bits,
+                      code_b=code_b)
+
+
+def oph4u_plain(indices, counts, a, *, s: int, bin_bits: int,
+                code_b: int = 0) -> torch.Tensor:
+    """Plain PyTorch ``oph4u``; ``a`` is (4, 1)."""
+    fn = lambda idx: hash4u_apply(idx, a[0, 0], a[1, 0], a[2, 0], a[3, 0], s)
+    return _oph_plain(fn, indices, counts, s=s, bin_bits=bin_bits,
+                      code_b=code_b)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def check_cuda_args(name: str, shapes: dict, **tensors) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA int32 tensor of the
+    given shape (None in a shape matches any size) on one device."""
+    dev = same_device(*tensors.values())
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {dev}")
+    for key, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        want = shapes[key]
+        if t.dim() != len(want) or any(w is not None and w != g
+                                       for w, g in zip(want, t.shape)):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want}")
+    return dev
+
+
+def _check_oph_statics(name, s, bin_bits, code_b):
+    if not 1 <= s <= 31:
+        raise ValueError(f"{name}: OPH needs 1 <= s <= 31, got {s}")
+    if not 0 <= bin_bits <= min(s, MAX_BIN_BITS):
+        raise ValueError(f"{name}: need 0 <= bin_bits <= min(s, "
+                         f"{MAX_BIN_BITS}), got {bin_bits}")
+    if not 0 <= code_b <= 16:
+        raise ValueError(f"{name}: code_b must be in [0, 16], got {code_b}")
+
+
+def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
+               variant: str = "high", code_b: int = 0) -> torch.Tensor:
+    """Launch ``oph2u_launch`` (csrc/oph.cu) on the current stream."""
+    n, nnz = indices.shape
+    dev = check_cuda_args("oph2u", {"indices": (n, nnz), "counts": (n,),
+                                    "a1": (1,), "a2": (1,)},
+                          indices=indices, counts=counts, a1=a1, a2=a2)
+    _check_oph_statics("oph2u", s, bin_bits, code_b)
+    if variant not in ("high", "low"):
+        raise ValueError(f"oph2u: variant must be 'high' or 'low', got {variant!r}")
+    out = torch.empty((n, 1 << bin_bits), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        status = build.library("oph").oph2u_launch(
+            indices.data_ptr(), counts.data_ptr(), n, nnz, a1.data_ptr(),
+            a2.data_ptr(), s, bin_bits, int(variant == "high"), code_b,
+            out.data_ptr(), OPH_THREADS, build.stream_handle(dev))
+    build.check(status, "oph2u")
+    oph2u_cuda.launches += 1
+    return out
+
+
+def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
+               code_b: int = 0) -> torch.Tensor:
+    """Launch ``oph4u_launch`` (csrc/oph.cu); ``a`` is (4, 1)."""
+    n, nnz = indices.shape
+    dev = check_cuda_args("oph4u", {"indices": (n, nnz), "counts": (n,),
+                                    "a": (4, 1)},
+                          indices=indices, counts=counts, a=a)
+    _check_oph_statics("oph4u", s, bin_bits, code_b)
+    out = torch.empty((n, 1 << bin_bits), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        status = build.library("oph").oph4u_launch(
+            indices.data_ptr(), counts.data_ptr(), n, nnz, a.data_ptr(), s,
+            bin_bits, code_b, out.data_ptr(), OPH_THREADS,
+            build.stream_handle(dev))
+    build.check(status, "oph4u")
+    oph4u_cuda.launches += 1
+    return out
+
+
+oph2u_cuda.launches = 0
+oph4u_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatch on the tensors' device
+# ---------------------------------------------------------------------------
+
+def oph2u(indices, counts, a1, a2, *, s: int, bin_bits: int,
+          variant: str = "high", code_b: int = 0) -> torch.Tensor:
+    """2U OPH bin minima: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if same_device(indices, counts, a1, a2).type == "cpu":
+        return oph2u_plain(indices, counts, a1, a2, s=s, bin_bits=bin_bits,
+                           variant=variant, code_b=code_b)
+    return oph2u_cuda(indices, counts, a1, a2, s=s, bin_bits=bin_bits,
+                      variant=variant, code_b=code_b)
+
+
+def oph4u(indices, counts, a, *, s: int, bin_bits: int,
+          code_b: int = 0) -> torch.Tensor:
+    """4U OPH bin minima (Mersenne BitMod); see ``oph2u``."""
+    if same_device(indices, counts, a).type == "cpu":
+        return oph4u_plain(indices, counts, a, s=s, bin_bits=bin_bits,
+                           code_b=code_b)
+    return oph4u_cuda(indices, counts, a, s=s, bin_bits=bin_bits,
+                      code_b=code_b)
