@@ -6,12 +6,17 @@ CUDA toolkit (Hopper, sm_90a):
 
     python3 chip_smoke.py
 
-It builds the four signature kernels from ``src/repro_torch/csrc`` into
-``build/kernels/``, holds each against its plain PyTorch version at the
-width of the paper's webspam (trigram) dataset, then drives the paper's
-main path -- §3 GPU preprocessing -> packed ``.sig`` cache -> §6 online
-SGD -- and the §3 batch entry point ``preprocess_shards``, and checks
-what comes out.  Scratch data goes to ``build/smoke/`` and is removed at
+It builds the kernels from ``src/repro_torch/csrc`` into
+``build/kernels/`` (one ``nvcc`` per source, all at once), holds the four
+signature kernels against their plain PyTorch versions at the width of
+the paper's webspam (trigram) dataset, then drives the paper's main path
+-- §3 GPU preprocessing -> packed ``.sig`` cache -> §6 online SGD -- and
+the §3 batch entry point ``preprocess_shards``, and checks what comes
+out.  Phase 5 drives retrieval at rcv1's document count: ``.sig`` ->
+banded ``.idx`` -> ``IndexSearcher`` exact and LSH flushes -> a 4-shard
+``ShardedIndex``, holding the ``packed_match`` kernel against its plain
+version and every search against the same searcher scoring through the
+plain version.  Scratch data goes to ``build/smoke/`` and is removed at
 the end.  It exits non-zero, with no result line, when there is no CUDA
 device, when it is not run from a checkout, or when any check fails.
 
@@ -54,12 +59,33 @@ INT32_OPS_PER_S = 67e12 / 2
 # three per bin to write sentinel codes.
 OPS_2U, OPS_SHIFT, OPS_4U = 1, 1, 3 * 6 + 1
 OPS_MIN, OPS_SCATTER, OPS_CODE = 0.5, 4, 3
+# Packed match, per (query, doc, word) when code_bits | 32 (b = 8): the
+# zero-field test ~(((x & lo) + lo) | x) & hi of x = q ^ c takes two LOP3
+# (x, and (q ^ c) & lo as one three-input op), one IADD and one LOP3;
+# counting takes one more -- the flag bits of up to code_bits words are
+# disjoint after a shift, so LEA.HI (shift-and-add) folds them ahead of
+# one POPC and one add.  Straddling codes (9 bits), per (query, doc,
+# code): one ISETP for the compare and one predicated IADD; sentinel
+# wires split the hit between matches and jointly-EMPTY with a second
+# ISETP and IADD.  Pulling a code out of its word pair (SHF funnel shift
+# + LOP3 mask) is per (row, code), not per pair.
+OPS_MATCH_WORD, OPS_MATCH_CODE, OPS_MATCH_CODE_SENT, OPS_EXTRACT = 5, 2, 4, 2
 
 SEED = 0
 K_OPH, K_MIN, K_PAPER, S, B = 512, 512, 500, 24, 8
 CHUNK = 10_000
 ACC_MARGIN = 0.30      # test accuracy must exceed chance (0.5) by this
 REPS = 7               # timed launches per kernel, after one warm-up
+
+# Retrieval (phase 5): rcv1's document count (Li, Shrivastava & König
+# 2012, Table 1), rows 256 nonzeros wide (rcv1 has ~12,062); OPH 2U,
+# k = 512, s = 30, b = 8.
+N_DOCS, NNZ_DOCS, K_IDX, S_IDX = 677_399, 256, 512, 30
+N_QUERIES, TOPK, BLOCK = 256, 10, 4096
+SENT_DOCS = 65_536     # sentinel-wire kernel check: the first docs
+RAW_SHARDS, SIG_CHUNK, N_SHARDS = 16, 50_000, 4
+FLUSH_REPS = {"exact": 5, "lsh": 2}   # timed flushes after the checked one
+BLOCK_LOOP = 20        # back-to-back block launches per timed sample
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -68,6 +94,8 @@ KERNEL_INFO = {
                   "src/repro/kernels/minhash.py:177"),
     "minhash4u": ("src/repro_torch/csrc/minhash.cu",
                   "src/repro/kernels/minhash.py:213"),
+    "packed_match": ("src/repro_torch/csrc/hamming.cu",
+                     "src/repro/kernels/hamming.py:99"),
 }
 
 
@@ -119,6 +147,21 @@ def minhash_ops(nonzeros: int, n: int, k: int, four_u: bool, b: int,
     return nonzeros * k * per_eval + n * k * per_out
 
 
+def match_ops(nq: int, nc: int, k: int, code_bits: int,
+              sentinel: bool) -> float:
+    """Least lane-instructions of one packed-match call (see above)."""
+    if 32 % code_bits == 0:
+        words = (k * code_bits + 31) // 32
+        return nq * nc * words * OPS_MATCH_WORD
+    per_code = OPS_MATCH_CODE_SENT if sentinel else OPS_MATCH_CODE
+    return nq * nc * k * per_code + (nq + nc) * k * OPS_EXTRACT
+
+
+def match_bytes(nq: int, nc: int, words: int, sentinel: bool) -> float:
+    """Query and corpus words read once, the count outputs written once."""
+    return 4 * (nq + nc) * words + 4 * nq * nc * (2 if sentinel else 1)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -136,7 +179,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    from repro_torch.core.u32 import to_numpy
+    from repro_torch.core.u32 import from_numpy, to_numpy
     from repro_torch.data.pipeline import SignatureStream, write_shards
     from repro_torch.data.preprocess import preprocess_shards
     from repro_torch.data.sigshard import read_sig_shard
@@ -384,11 +427,271 @@ def run(torch) -> int:
 
     for name, row in rows.items():
         row["launches"] = path_counts[name] + batch_counts[name]
+
+    # -- phase 5: retrieval ----------------------------------------------
+    rows["packed_match"] = retrieval(torch, dev, N_DOCS)
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def retrieval(torch, dev, n_docs: int) -> dict:
+    """Phase 5: .sig -> .idx -> exact / LSH flushes -> 4 shards, on the
+    card; returns the ``packed_match`` row of the kernels line."""
+    import numpy as np
+
+    from repro_torch.core.u32 import from_numpy, to_numpy
+    from repro_torch.data.pipeline import write_shards
+    from repro_torch.data.preprocess import preprocess_shards
+    from repro_torch.data.sparse import from_lists
+    from repro_torch.data.synthetic import DatasetSpec, generate_sets
+    from repro_torch.index import (IndexSearcher, band_keys_packed,
+                                   build_index, build_sharded,
+                                   choose_band_config, load_index,
+                                   load_sharded, resemblance_scores)
+    from repro_torch.kernels import batch_signatures
+    from repro_torch.kernels import hamming as kham
+    from repro_torch.kernels.hamming import packed_match_plain
+    from repro_torch.train.online import make_family
+
+    kern = kham.packed_match_cuda
+    t_phase = time.perf_counter()
+
+    class PlainScored(IndexSearcher):
+        """The same searcher, scoring through the plain version."""
+
+        def match_counts(self, qwords, cwords):
+            spec = self.index.spec
+            return packed_match_plain(qwords, cwords, k=spec.k,
+                                      code_bits=spec.code_bits,
+                                      sentinel=spec.sentinel)
+
+    # -- corpus: the train split is the corpus, the test split held out --
+    n_rows = -(-n_docs * 5 // 4)
+    spec = DatasetSpec("rcv1_docs", n=n_rows, D=2**S_IDX, avg_nnz=NNZ_DOCS,
+                       n_prototypes=8, overlap=0.8, seed=SEED + 11)
+    t0 = time.perf_counter()
+    (docs, labels), (held, _) = generate_sets(spec)
+    if len(docs) != n_docs:
+        raise AssertionError(f"corpus has {len(docs)} rows, want {n_docs}")
+    held = held[:N_QUERIES]
+    raw = write_shards(docs, labels, str(SMOKE_DIR / "rcv1_raw"), RAW_SHARDS)
+    nnz = sum(map(len, docs))
+    del docs, labels
+    log(f"[retrieval data] {spec.name}: {n_docs} docs, mean nnz "
+        f"{nnz / n_docs:.1f}, D=2^{S_IDX}, {RAW_SHARDS} raw shards, "
+        f"generated + written in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    fams = {d: make_family("oph", K_IDX, S_IDX, densify=d, generator=gen,
+                           device=dev) for d in ("rotation", "sentinel")}
+    sig_dirs = {d: SMOKE_DIR / f"rcv1_sig_{d}" for d in fams}
+    for d, paths in (("rotation", raw), ("sentinel", raw[:2])):
+        st = preprocess_shards(paths, str(sig_dirs[d]), fams[d], b=B,
+                               chunk_size=SIG_CHUNK)
+        log(f"[retrieval preprocess {d}] {st.examples} docs: load "
+            f"{st.load_s:.1f} s, kernel {st.kernel_s:.2f} s, store "
+            f"{st.store_s:.1f} s")
+    shutil.rmtree(SMOKE_DIR / "rcv1_raw")
+    sig_paths = {d: sorted(str(p) for p in sig_dirs[d].glob("*.sig"))
+                 for d in fams}
+
+    # -- index build, load, corpus upload --------------------------------
+    cfg = choose_band_config(K_IDX, B, threshold=0.5)
+    idx_path = str(SMOKE_DIR / "rcv1.idx")
+    t0 = time.perf_counter()
+    meta = build_index(sig_paths["rotation"], idx_path, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    index = load_index(idx_path, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = index.corpus
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    log(f"[retrieval index] {meta.n} docs, k={meta.k} b={meta.b} words="
+        f"{meta.words}, bands {cfg.n_bands}x{cfg.rows_per_band}, "
+        f"{meta.n_keys} buckets, .idx {os.path.getsize(idx_path)} B; build "
+        f"{build_s:.1f} s; corpus H2D {meta.payload_bytes} B in "
+        f"{h2d_s * 1e3:.1f} ms ({meta.payload_bytes / h2d_s / 1e9:.2f} GB/s)")
+    if meta.n != n_docs or tuple(corpus.shape) != (n_docs, meta.words):
+        raise AssertionError(f"index holds {tuple(corpus.shape)}")
+
+    rng = np.random.default_rng(SEED + 13)
+    picks = np.sort(rng.choice(n_docs, N_QUERIES, replace=False))
+    exact_rows = [np.asarray(index.words_host[i]) for i in picks]
+    held_sig = batch_signatures(from_lists(held, device=dev),
+                                fams["rotation"], b=B, packed=True)
+    held_rows = [held_sig[i:i + 1] for i in range(N_QUERIES)]
+    q_exact = from_numpy(np.stack(exact_rows), dev)
+
+    # -- the kernel against its plain version ----------------------------
+    blk = corpus[:BLOCK]
+    err, plain_corpus_ms = 0, 0.0
+    for lo in range(0, n_docs, 16 * BLOCK):
+        part, out = corpus[lo:lo + 16 * BLOCK], {}
+        got = kern(q_exact, part, k=K_IDX, code_bits=B)
+        plain_corpus_ms += cuda_ms(lambda: out.setdefault(
+            "want", packed_match_plain(q_exact, part, k=K_IDX, code_bits=B)),
+            torch)
+        err = max(err, max_abs_err(got, out["want"]))
+    if err:
+        raise AssertionError(f"packed_match b={B}: kernel != plain version "
+                             f"(max |err| {err})")
+    # one 4,096-row launch is shorter than the wrapper's host time, so a
+    # sample is BLOCK_LOOP launches back to back, as an exact flush runs
+    ms_blk = median_ms(lambda: [kern(q_exact, blk, k=K_IDX, code_bits=B)
+                                for _ in range(BLOCK_LOOP)],
+                       torch) / BLOCK_LOOP
+    ms_all = median_ms(lambda: kern(q_exact, corpus, k=K_IDX, code_bits=B),
+                       torch)
+    packed_match_plain(q_exact, blk, k=K_IDX, code_bits=B)
+    plain_blk = cuda_ms(lambda: packed_match_plain(q_exact, blk, k=K_IDX,
+                                                   code_bits=B), torch)
+    b_blk, by_blk = bound(match_bytes(N_QUERIES, BLOCK, meta.words, False),
+                          match_ops(N_QUERIES, BLOCK, K_IDX, B, False))
+    b_all, by_all = bound(match_bytes(N_QUERIES, n_docs, meta.words, False),
+                          match_ops(N_QUERIES, n_docs, K_IDX, B, False))
+    log(f"[kernel] packed_match b={B} Q={N_QUERIES} N={BLOCK}: {ms_blk:.4f} "
+        f"ms (median of {REPS} samples of {BLOCK_LOOP} launches, CUDA "
+        f"events), bound {b_blk:.4f} ms "
+        f"({by_blk}), plain {plain_blk:.1f} ms (1 call)")
+    log(f"[kernel] packed_match b={B} Q={N_QUERIES} N={n_docs}: "
+        f"{ms_all:.4f} ms median of {REPS}, bound {b_all:.4f} ms "
+        f"({by_all}), plain {plain_corpus_ms:.1f} ms (in blocks of "
+        f"{16 * BLOCK}); bit-exact on all {N_QUERIES} x {n_docs} pairs")
+
+    # sentinel wire (9-bit codes straddle words): its own index
+    sent_path = str(SMOKE_DIR / "rcv1_sentinel.idx")
+    cfg_s = choose_band_config(K_IDX, B, code_bits=B + 1, threshold=0.5)
+    meta_s = build_index(sig_paths["sentinel"], sent_path, cfg_s, device=dev)
+    index_s = load_index(sent_path, device=dev)
+    q_sent = batch_signatures(from_lists(held, device=dev),
+                              fams["sentinel"], b=B, packed=True).data
+    c_sent = index_s.corpus[:SENT_DOCS]
+    got = kern(q_sent, c_sent, k=K_IDX, code_bits=B + 1, sentinel=True)
+    want = packed_match_plain(q_sent, c_sent, k=K_IDX, code_bits=B + 1,
+                              sentinel=True)
+    err_s = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err_s or not int(want[1].sum()):
+        raise AssertionError(f"packed_match sentinel: kernel != plain "
+                             f"(max |err| {err_s}) or no joint EMPTY")
+    ms_s = median_ms(lambda: kern(q_sent, c_sent, k=K_IDX, code_bits=B + 1,
+                                  sentinel=True), torch)
+    plain_s = cuda_ms(lambda: packed_match_plain(
+        q_sent, c_sent, k=K_IDX, code_bits=B + 1, sentinel=True), torch)
+    b_s, by_s = bound(match_bytes(N_QUERIES, SENT_DOCS, meta_s.words, True),
+                      match_ops(N_QUERIES, SENT_DOCS, K_IDX, B + 1, True))
+    log(f"[kernel] packed_match sentinel b={B} (9-bit codes, words="
+        f"{meta_s.words}) Q={N_QUERIES} N={SENT_DOCS}: {ms_s:.4f} ms median "
+        f"of {REPS}, bound {b_s:.4f} ms ({by_s}), plain {plain_s:.1f} ms; "
+        f"bit-exact, {int(want[1].sum())} jointly-EMPTY positions")
+
+    # -- the main path: exact and LSH flushes ----------------------------
+    def flush(searcher, rows, mode):
+        for r in rows:
+            searcher.submit(r)
+        t0 = time.perf_counter()
+        out = searcher.flush(TOPK, mode=mode)
+        lat = time.perf_counter() - t0
+        res = [out[t] for t in sorted(out)]
+        return (np.concatenate([r.indices for r in res]),
+                np.concatenate([r.scores for r in res]),
+                None if res[0].n_candidates is None else
+                np.concatenate([r.n_candidates for r in res]), lat)
+
+    searcher = IndexSearcher(index, device=dev, corpus_block=BLOCK)
+    plain = PlainScored(index, device=dev, corpus_block=BLOCK)
+    launches, lat = {}, {}
+    for mode, rows in (("exact", exact_rows), ("lsh", held_rows)):
+        kern.launches = 0
+        ids, sc, n_cand, first = flush(searcher, rows, mode)
+        per_flush = kern.launches
+        lat[mode] = sorted([first] + [flush(searcher, rows, mode)[3]
+                                      for _ in range(FLUSH_REPS[mode])])
+        launches[mode] = (kern.launches, per_flush)
+        p_ids, p_sc, _, _ = flush(plain, rows, mode)
+        if not (np.array_equal(ids, p_ids) and np.array_equal(sc, p_sc)):
+            raise AssertionError(f"{mode} flush: kernel-scored results != "
+                                 "plain-scored results")
+        want_launches = -(-n_docs // BLOCK) if mode == "exact" else 1
+        if per_flush != want_launches:
+            raise AssertionError(f"{mode} flush launched packed_match "
+                                 f"{per_flush} times, want {want_launches}")
+        if mode == "exact":
+            ids_exact, sc_exact = ids, sc
+            hit = float(np.mean(ids[:, 0] == picks))
+            if hit != 1.0:
+                raise AssertionError(f"exact self-hit@1 {hit} != 1.0")
+        else:
+            ids_lsh, sc_lsh, cand_lsh = ids, sc, n_cand
+        p50 = lat[mode][len(lat[mode]) // 2]
+        log(f"[search {mode}] {N_QUERIES} queries, top-{TOPK}: flush p50 "
+            f"{p50 * 1e3:.1f} ms (max {lat[mode][-1] * 1e3:.1f}) over "
+            f"{len(lat[mode])} flushes, {N_QUERIES / p50:.0f} q/s; "
+            f"packed_match launches {per_flush} per flush; ids and scores "
+            f"== plain-scored searcher"
+            + (f"; self-hit@1 {hit:.2f}" if mode == "exact" else ""))
+    if min(n for n, _ in launches.values()) < 1:
+        raise AssertionError("a flush never launched packed_match")
+
+    # LSH recall against exact, and where an LSH flush's time goes
+    ids_he, _, _, _ = flush(searcher, held_rows, "exact")
+    recall = np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / TOPK
+                      for a, b in zip(ids_lsh, ids_he)])
+    t0 = time.perf_counter()
+    qkeys = to_numpy(band_keys_packed(held_sig.data, index.spec, cfg))
+    t_keys = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand = index.candidates_batch(qkeys)
+    t_cand = time.perf_counter() - t0
+    union = np.unique(np.concatenate(cand)).size
+    log(f"[search lsh] recall@{TOPK} vs exact {recall:.4f}; candidates per "
+        f"query mean {cand_lsh.mean():.0f} ({cand_lsh.mean() / n_docs:.3f} "
+        f"of the corpus), union {union}; band keys {t_keys * 1e3:.1f} ms, "
+        f"host candidate generation {t_cand * 1e3:.1f} ms")
+
+    # where an exact flush's time goes: kernel, + scores, the rest merge
+    def blocks(score):
+        for lo in range(0, n_docs, BLOCK):
+            m = kern(q_exact, corpus[lo:lo + BLOCK], k=K_IDX, code_bits=B)
+            if score:
+                resemblance_scores(m, None, K_IDX, B)
+    t_kern, t_score = (median_ms(lambda: blocks(sc_on), torch)
+                       for sc_on in (False, True))
+    p50 = lat["exact"][len(lat["exact"]) // 2] * 1e3
+    log(f"[search exact] per flush: kernel {t_kern:.2f} ms "
+        f"({-(-n_docs // BLOCK)} launches), kernel + scores {t_score:.2f} "
+        f"ms, top-k merge and host the rest of the {p50:.1f} ms p50")
+
+    # -- 4 shards, sequential fan-out, against the single index ----------
+    os.remove(idx_path)        # frees its disk; the open mmaps stay valid
+    t0 = time.perf_counter()
+    build_sharded(sig_paths["rotation"], str(SMOKE_DIR / "rcv1_shards"), cfg,
+                  n_shards=N_SHARDS, device=dev)
+    shard_s = time.perf_counter() - t0
+    router = load_sharded(str(SMOKE_DIR / "rcv1_shards"), device=dev,
+                          corpus_block=BLOCK)
+    for s in router.searchers:          # upload the shard corpora first
+        s.index.corpus
+    torch.cuda.synchronize()
+    for mode, rows, ids, sc in (("exact", exact_rows, ids_exact, sc_exact),
+                                ("lsh", held_rows, ids_lsh, sc_lsh)):
+        r_ids, r_sc, _, r_lat = flush(router, rows, mode)
+        if not (np.array_equal(r_ids, ids) and np.array_equal(r_sc, sc)):
+            raise AssertionError(f"{N_SHARDS} shards != 1 index ({mode})")
+        log(f"[shards {mode}] {N_SHARDS} shards (build {shard_s:.1f} s): "
+            f"flush {r_lat * 1e3:.1f} ms, ids and scores == single index")
+
+    total = sum(n for n, _ in launches.values())
+    log(f"[retrieval] {time.perf_counter() - t_phase:.1f} s; packed_match "
+        f"launches on the main path {total} ({launches})")
+    return dict(name="packed_match", route="cuda",
+                source=KERNEL_INFO["packed_match"][0],
+                replaces=KERNEL_INFO["packed_match"][1], launches=total,
+                max_abs_err=max(err, err_s), ms=ms_blk, plain_ms=plain_blk,
+                bound_ms=b_blk, bound_by=by_blk, library_ms=None)
 
 
 if __name__ == "__main__":

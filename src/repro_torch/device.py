@@ -12,18 +12,17 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the CUDA card.
 
-    With no device given and no CUDA device present this raises: the port
-    never carries on on the CPU unless the caller asked for it.
+    Asking for the card (``None`` or a CUDA device) where no CUDA device is
+    present raises: the port never carries on on the CPU unless the caller
+    asked for it.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions of the kernels")
-        return torch.device("cuda")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels")
     return dev
 
 

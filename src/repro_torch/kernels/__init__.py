@@ -1,9 +1,11 @@
-"""The signature kernels (port of ``repro.kernels``).
+"""The signature and retrieval kernels (port of ``repro.kernels``).
 
   oph.py      -- One Permutation Hashing bin minima: CUDA kernels
                  (csrc/oph.cu) + plain versions.
   minhash.py  -- 2U / 4U minwise-hash kernels with the fused b-bit mask and
                  pack epilogue (csrc/minhash.cu) + plain versions.
+  hamming.py  -- packed-signature match counts for retrieval
+                 (csrc/hamming.cu) + plain version.
   pack.py     -- the packed b-bit wire format.
   engine.py   -- SignaturePlan / SignatureEngine, backends, PackedSignatures.
   build.py    -- nvcc build of csrc/*.cu and ctypes loading.

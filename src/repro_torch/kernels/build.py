@@ -31,12 +31,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels for a source checkout (src/repro_torch/...)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("oph", "minhash")
+SOURCES = ("oph", "minhash", "hamming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 # argtypes of every C entry: pointers and the stream as c_void_p
 SIGNATURES = {
     "oph": {
@@ -48,6 +49,10 @@ SIGNATURES = {
                              _I, _I, _P],
         "minhash4u_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I,
                              _P],
+    },
+    "hamming": {
+        "packed_match_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U,
+                                _P, _P, _P],
     },
 }
 
