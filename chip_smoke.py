@@ -16,8 +16,13 @@ out.  Phase 5 drives retrieval at rcv1's document count: ``.sig`` ->
 banded ``.idx`` -> ``IndexSearcher`` exact and LSH flushes -> a 4-shard
 ``ShardedIndex``, holding the ``packed_match`` kernel against its plain
 version and every search against the same searcher scoring through the
-plain version.  Scratch data goes to ``build/smoke/`` and is removed at
-the end.  It exits non-zero, with no result line, when there is no CUDA
+plain version.  Phase 6 serves the published Wide & Deep (40 fields x
+1,000,000 rows x d = 32, MLP 1024-512-256, minhash frontend k = 64, b = 8)
+through ``serve_scores``, holding ``sigbag`` and ``minhash2u`` at the
+frontend's shapes against their plain versions and the served scores
+against the same model scoring through the plain versions, and runs the
+``repro_torch.launch.serve --arch wide-deep --no-smoke`` entry point.
+Scratch data goes to ``build/smoke/`` and is removed at the end.  It exits non-zero, with no result line, when there is no CUDA
 device, when it is not run from a checkout, or when any check fails.
 
 Output: one line per phase and kernel, the card's name and power limit,
@@ -27,8 +32,11 @@ a ``{"kernels": [...]}`` JSON line, and as the last line
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -87,6 +95,12 @@ RAW_SHARDS, SIG_CHUNK, N_SHARDS = 16, 50_000, 4
 FLUSH_REPS = {"exact": 5, "lsh": 2}   # timed flushes after the checked one
 BLOCK_LOOP = 20        # back-to-back block launches per timed sample
 
+# Recsys serving (phase 6): wide-deep CONFIG, serve_p99 (batch 512) and
+# serve_bulk (262,144 rows) for sigbag.
+N_REQUESTS, WARMUP_REQUESTS, CLI_REQUESTS = 128, 3, 16
+BULK_ROWS = 262_144
+SIGBAG_LOOP = 20       # back-to-back 512-row launches per timed sample
+
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
     "oph4u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:178"),
@@ -96,6 +110,8 @@ KERNEL_INFO = {
                   "src/repro/kernels/minhash.py:213"),
     "packed_match": ("src/repro_torch/csrc/hamming.cu",
                      "src/repro/kernels/hamming.py:99"),
+    "sigbag": ("src/repro_torch/csrc/sigbag.cu",
+               "src/repro/kernels/sigbag.py:47"),
 }
 
 
@@ -118,6 +134,27 @@ def median_ms(fn, torch) -> float:
     fn()                                   # warm-up
     torch.cuda.synchronize()
     return statistics.median(cuda_ms(fn, torch) for _ in range(REPS))
+
+
+def graph_ms(fn, torch, loop: int = 1) -> float:
+    """Device milliseconds of one call of ``fn`` with no host time between
+    launches: ``loop`` calls captured in one CUDA graph, the median of
+    REPS timed replays over ``loop``.  For work shorter than the host's
+    launch overhead, where CUDA events around eager calls time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(loop):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return statistics.median(cuda_ms(graph.replay, torch)
+                             for _ in range(REPS)) / loop
 
 
 def max_abs_err(got, want) -> int:
@@ -430,6 +467,10 @@ def run(torch) -> int:
 
     # -- phase 5: retrieval ----------------------------------------------
     rows["packed_match"] = retrieval(torch, dev, N_DOCS)
+
+    # -- phase 6: recsys serving -----------------------------------------
+    rows["sigbag"], minhash_launches = recsys_serving(torch, dev)
+    rows["minhash2u"]["launches"] += minhash_launches
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -692,6 +733,225 @@ def retrieval(torch, dev, n_docs: int) -> dict:
                 replaces=KERNEL_INFO["packed_match"][1], launches=total,
                 max_abs_err=max(err, err_s), ms=ms_blk, plain_ms=plain_blk,
                 bound_ms=b_blk, bound_by=by_blk, library_ms=None)
+
+
+def recsys_serving(torch, dev) -> tuple:
+    """Phase 6: the published Wide & Deep served on the card; returns the
+    ``sigbag`` row of the kernels line and the ``minhash2u`` launches of
+    the served path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels.sigbag import sigbag_cuda, sigbag_plain
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell, init_inputs
+    from repro_torch.models.recsys import RecsysModel
+
+    kern, mh = sigbag_cuda, kmin.minhash2u_cuda
+    t_phase = time.perf_counter()
+
+    class PlainFrontend(RecsysModel):
+        """The same model, its frontend through the plain versions."""
+
+        def signatures(self, set_ids, set_counts):
+            return kmin.minhash2u_plain(set_ids, set_counts.reshape(-1),
+                                        self.a1, self.a2,
+                                        s=self.cfg.minhash_s,
+                                        b=self.cfg.minhash_b)
+
+        def signature_bag(self, sig):
+            return sigbag_plain(sig, self.minhash_table)
+
+    # -- build the full-width model straight on the card ------------------
+    prog = build_cell("wide-deep", "serve_p99", smoke=False, device=dev)
+    cfg = prog.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = prog.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    log(f"[recsys model] {cfg.arch_id}: {cfg.n_fields} fields x "
+        f"{cfg.vocab:,} rows x d={cfg.embed_dim}, MLP {cfg.mlp_dims}, "
+        f"frontend k={cfg.minhash_k} b={cfg.minhash_b} s={cfg.minhash_s} "
+        f"nnz {cfg.set_nnz}; parameters {param_bytes:,} B, initialised on "
+        f"the card in {init_s:.2f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated():,} B")
+
+    # -- sigbag against its plain version -----------------------------------
+    k, two_b, d = cfg.minhash_k, 1 << cfg.minhash_b, cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    tables = {"float32": model.minhash_table.detach(),
+              "bfloat16": model.minhash_table.detach().to(torch.bfloat16)}
+    n_req = prog.input_specs["set_ids"].shape[0]
+    err, row = 0.0, None
+    for dtype, n in (("float32", n_req), ("bfloat16", n_req),
+                     ("float32", BULK_ROWS)):
+        table = tables[dtype]
+        tok = torch.randint(0, two_b, (n, k), dtype=torch.int32,
+                            generator=gen, device=dev)
+        got = kern(tok, table)
+        want = sigbag_plain(tok, table)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sigbag {dtype} n={n}: kernel != plain "
+                                 "version")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        flat = tok.to(torch.int64) + torch.arange(k, device=dev) * two_b
+        weight = table.reshape(k * two_b, d)
+        if n == n_req:
+            # a 512-row launch is shorter than the wrapper's host time:
+            # its device time comes from a graph of SIGBAG_LOOP launches;
+            # eager launches back to back give the host's launch rate
+            ms = graph_ms(lambda: kern(tok, table), torch, SIGBAG_LOOP)
+            lib_ms = graph_ms(lambda: F.embedding_bag(flat, weight,
+                                                      mode="sum"),
+                              torch, SIGBAG_LOOP)
+            eager = median_ms(lambda: [kern(tok, table)
+                                       for _ in range(SIGBAG_LOOP)],
+                              torch) / SIGBAG_LOOP
+            how = (f"median of {REPS} replays of a CUDA graph of "
+                   f"{SIGBAG_LOOP} launches; eager launches back to back "
+                   f"{eager:.4f} ms each")
+        else:
+            ms = median_ms(lambda: kern(tok, table), torch)
+            lib_ms = median_ms(lambda: F.embedding_bag(flat, weight,
+                                                       mode="sum"), torch)
+            how = f"median of {REPS}, CUDA events"
+        plain_ms = cuda_ms(lambda: sigbag_plain(tok, table), torch)
+        # tokens read once, each table row this run's tokens touch read
+        # once (at 512 uniform rows ~221 of each slot's 256), output
+        # written once; one float32 add per (row, slot, column) at the
+        # lane-instruction rate
+        rows_read = int(torch.unique(flat).numel())
+        nbytes = 4 * n * k + rows_read * d * table.element_size() \
+            + n * d * table.element_size()
+        b_ms, b_by = bound(nbytes, n * k * d)
+        log(f"[kernel] sigbag {dtype} n={n} k={k} 2^b={two_b} d={d}: "
+            f"{ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{rows_read} of {k * two_b} table rows touched), plain "
+            f"{plain_ms:.2f} ms (1 call), F.embedding_bag {lib_ms:.4f} ms "
+            f"(timed alike); bit-exact")
+        if row is None:
+            row = dict(name="sigbag", route="cuda",
+                       source=KERNEL_INFO["sigbag"][0],
+                       replaces=KERNEL_INFO["sigbag"][1], launches=0,
+                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    row["max_abs_err"] = err
+
+    # -- minhash2u at the frontend's shape ----------------------------------
+    inputs = init_inputs(prog, torch.Generator(device=dev).manual_seed(SEED))
+    ids, cnt = inputs["set_ids"], inputs["set_counts"]
+    mh_args = (ids, cnt, model.a1, model.a2)
+    mh_kw = dict(s=cfg.minhash_s, b=cfg.minhash_b)
+    got, want = mh(*mh_args, **mh_kw), kmin.minhash2u_plain(*mh_args, **mh_kw)
+    mh_err = max_abs_err(got, want)
+    if mh_err:
+        raise AssertionError(f"minhash2u k={k}: kernel != plain version "
+                             f"(max |err| {mh_err})")
+    total_nnz = int(cnt.sum())
+    mh_ms = graph_ms(lambda: mh(*mh_args, **mh_kw), torch, SIGBAG_LOOP)
+    mh_plain = cuda_ms(lambda: kmin.minhash2u_plain(*mh_args, **mh_kw), torch)
+    mb_ms, mb_by = bound(4 * total_nnz + 4 * n_req + 4 * k * 2 + 4 * n_req * k,
+                         minhash_ops(total_nnz, n_req, k, False,
+                                     cfg.minhash_b, False))
+    log(f"[kernel] minhash2u frontend n={n_req} nnz={ids.shape[1]} "
+        f"(nonzeros {total_nnz}) k={k} s={cfg.minhash_s} b={cfg.minhash_b}: "
+        f"{mh_ms:.4f} ms (median of {REPS} replays of a CUDA graph of "
+        f"{SIGBAG_LOOP} launches), bound {mb_ms:.4f} ms ({mb_by}), plain {mh_plain:.2f} ms;"
+        f" bit-exact")
+
+    # -- the served path ----------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    for _ in range(WARMUP_REQUESTS):
+        prog.step(model, init_inputs(prog, gen))
+    torch.cuda.synchronize()
+    batches = [init_inputs(prog, gen) for _ in range(N_REQUESTS)]
+    kern.launches = mh.launches = 0
+    lat = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        scores = prog.step(model, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = {"minhash2u": mh.launches, "sigbag": kern.launches}
+    for name, count in launches.items():
+        if count != N_REQUESTS:
+            raise AssertionError(f"{N_REQUESTS} requests launched {name} "
+                                 f"{count} times, want one per request")
+    if scores.shape != (n_req,) or not bool(
+            ((scores > 0) & (scores < 1)).all()):
+        raise AssertionError(f"scores {tuple(scores.shape)} not in (0, 1)")
+    lat.sort()
+    p50 = lat[len(lat) // 2]
+    p99 = lat[-(-len(lat) * 99 // 100) - 1]
+    # device time of one request, with and without host gaps
+    b0 = batches[0]
+    frontend = lambda: model.signature_bag(
+        model.signatures(b0["set_ids"], b0["set_counts"]))
+    step_ms = graph_ms(lambda: prog.step(model, b0), torch)
+    front_ms = graph_ms(frontend, torch)
+    step_ev = statistics.median(cuda_ms(lambda: prog.step(model, b_), torch)
+                                for b_ in batches)
+    front_ev = statistics.median(cuda_ms(
+        lambda: model.signature_bag(model.signatures(b_["set_ids"],
+                                                     b_["set_counts"])),
+        torch) for b_ in batches)
+    log(f"[serve wide-deep] {N_REQUESTS} requests x batch {n_req}: p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms, max {lat[-1]:.3f} ms (host clock "
+        f"to a synchronize), {n_req * N_REQUESTS / (sum(lat) / 1e3):.0f} "
+        f"rows/s; launches per request: 1 minhash2u + 1 sigbag")
+    log(f"[serve wide-deep] device time of a request (CUDA graph replay) "
+        f"{step_ms:.4f} ms, of it the frontend (minhash2u + sigbag) "
+        f"{front_ms:.4f} ms ({front_ms / step_ms:.1%}); the device is busy "
+        f"{step_ms / p50:.1%} of the p50 request. Eager, CUDA events "
+        f"(median over the requests): request {step_ev:.4f} ms, frontend "
+        f"{front_ev:.4f} ms")
+
+    # -- the same batch through the plain versions --------------------------
+    plain_model = PlainFrontend(cfg, model.params(), model.a1, model.a2)
+    want = prog.step(plain_model, batches[0])
+    got = prog.step(model, batches[0])
+    if not torch.equal(got, want):
+        raise AssertionError("served scores: kernels != plain versions")
+    log(f"[serve wide-deep] {n_req} scores through the kernels == through "
+        f"the plain versions, bit for bit")
+
+    # -- a small model on the CPU (plain versions) and on the card ----------
+    sprog = build_cell("wide-deep", "serve_p99", smoke=True, device="cpu")
+    smodel = sprog.init_params(torch.Generator().manual_seed(SEED))
+    sin = init_inputs(sprog, torch.Generator().manual_seed(SEED + 1))
+    s_sig = smodel.signatures(sin["set_ids"], sin["set_counts"])
+    s_want = sprog.step(smodel, sin)
+    smodel.to(dev)
+    sin = {key: v.to(dev) for key, v in sin.items()}
+    if not torch.equal(smodel.signatures(sin["set_ids"], sin["set_counts"]),
+                       s_sig.to(dev)):
+        raise AssertionError("smoke signatures: card != CPU")
+    torch.testing.assert_close(sprog.step(smodel, sin).cpu(), s_want,
+                               rtol=1e-5, atol=1e-6)
+    log(f"[serve wide-deep-smoke] card == CPU plain path (signatures bit "
+        f"for bit, scores within rtol 1e-5 / atol 1e-6)")
+
+    # -- the launcher ---------------------------------------------------------
+    del model, plain_model, batches
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "wide-deep", "--no-smoke", "--requests",
+                    str(CLI_REQUESTS)])
+    line = out.getvalue().strip().splitlines()[-1]
+    if not re.fullmatch(rf"{CLI_REQUESTS} requests, batch {n_req}: "
+                        r"p50=\d+\.\dms p99=\d+\.\dms", line):
+        raise AssertionError(f"serve --arch wide-deep printed {line!r}")
+    log(f"[serve CLI] python -m repro_torch.launch.serve --arch wide-deep "
+        f"--no-smoke --requests {CLI_REQUESTS}: {line}")
+    log(f"[recsys] {time.perf_counter() - t_phase:.1f} s; launches on the "
+        f"served path {launches}")
+    row["launches"] = launches["sigbag"]
+    return row, launches["minhash2u"]
 
 
 if __name__ == "__main__":

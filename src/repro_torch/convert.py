@@ -1,4 +1,5 @@
-"""Carry hash families and SGD state from the JAX package into the port.
+"""Carry hash families, SGD state and recsys weights from the JAX package
+into the port.
 
 Nothing here imports ``jax`` or ``repro``: a JAX object is read through
 its attributes with ``np.asarray`` (which any array-like supports), so
@@ -16,8 +17,10 @@ import torch
 
 from repro_torch.core.hashing import Hash2U, Hash4U, PermutationFamily
 from repro_torch.core.oph import OPH
+from repro_torch.core.u32 import from_numpy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.linear import LinearModel, SGDState
+from repro_torch.models.recsys import RecsysConfig, RecsysModel
 
 
 def family_from_jax(family, device: DeviceLike = None):
@@ -70,3 +73,25 @@ def sgd_state_to_numpy(state) -> Dict[str, np.ndarray]:
     return {"w": a(state.model.w), "bias": a(state.model.bias),
             "t": a(state.t), "avg_w": a(state.avg_w),
             "avg_bias": a(state.avg_bias)}
+
+
+def recsys_params_from_jax(params, cfg: RecsysConfig, a1=None, a2=None,
+                           device: DeviceLike = None) -> RecsysModel:
+    """A reference recsys param dict, and its frontend's 2U coefficients
+    (uint32 arrays; the reference draws them per process, so they are
+    handed over), -> the port's model with the same values on ``device``.
+    ``cfg`` is the port's config of the same arch."""
+    dev = resolve_device(device)
+
+    def t(x):
+        # through float32: numpy has no bfloat16 torch can read
+        return torch.from_numpy(np.array(x, np.float32)).to(
+            device=dev, dtype=cfg.param_dtype)
+
+    p = {"tables": t(params["tables"]), "wide": t(params["wide"]),
+         "deep": {"w": [t(w) for w in params["deep"]["w"]],
+                  "b": [t(b) for b in params["deep"]["b"]]}}
+    if cfg.use_minhash_frontend:
+        p["minhash_table"] = t(params["minhash_table"])
+        a1, a2 = from_numpy(a1, dev), from_numpy(a2, dev)
+    return RecsysModel(cfg, p, a1, a2)

@@ -6,6 +6,8 @@
                  pack epilogue (csrc/minhash.cu) + plain versions.
   hamming.py  -- packed-signature match counts for retrieval
                  (csrc/hamming.cu) + plain version.
+  sigbag.py   -- the Eq. (5) signature embedding-bag of the recsys
+                 frontend (csrc/sigbag.cu) + plain version.
   pack.py     -- the packed b-bit wire format.
   engine.py   -- SignaturePlan / SignatureEngine, backends, PackedSignatures.
   build.py    -- nvcc build of csrc/*.cu and ctypes loading.

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels for a source checkout (src/repro_torch/...)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("oph", "minhash", "hamming")
+SOURCES = ("oph", "minhash", "hamming", "sigbag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,6 +53,9 @@ SIGNATURES = {
     "hamming": {
         "packed_match_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U,
                                 _P, _P, _P],
+    },
+    "sigbag": {
+        "sigbag_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 

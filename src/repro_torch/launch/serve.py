@@ -1,5 +1,16 @@
-"""Similarity-search serving over a packed signature index (port of
-``repro.launch.serve --index``, closed loop):
+"""Serving launcher (port of ``repro.launch.serve``): recsys scoring and
+similarity search.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch wide-deep
+        [--smoke | --no-smoke] [--requests N] [--device cuda|cpu]
+
+Builds the arch's ``serve_p99`` cell (``--no-smoke``: the published
+widths), draws its weights from a seeded generator on the device, and
+scores ``--requests`` fresh batches of random inputs through
+``serve_scores``, after one untimed request that builds the kernels.
+Each batch is drawn before its timer starts, as in the reference.  Prints
+requests, batch and the p50 / p99 (the slowest) request ms on a host
+clock that waits for the device, as the reference does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --index
         [--mode exact|lsh] [--docs N] [--queries N] [--requests N]
@@ -10,8 +21,10 @@ Makes a synthetic corpus, hashes it to packed ``.sig`` shards
 (``preprocess_shards``), builds the banded ``.idx`` (or ``--shards S``
 of them behind a ``ShardedIndex``), then serves ``--requests`` batches of
 ``--queries`` corpus rows through ``submit`` / ``flush`` and prints the
-p50 / max batch latency, q/s and self-hit@1.  Runs on the card unless
-``--device cpu``.
+p50 / max batch latency, q/s and self-hit@1.
+
+Both run on the card unless ``--device cpu``, where the kernels' plain
+versions run.
 """
 
 from __future__ import annotations
@@ -102,6 +115,35 @@ def serve_index(args) -> None:
               f"self-hit@1={hits0:.2f}")
 
 
+def serve_recsys(args) -> None:
+    """The recsys workload: score synthetic requests with ``--arch``."""
+    from repro_torch.launch.steps import build_cell, init_inputs
+
+    dev = resolve_device(args.device)
+    prog = build_cell(args.arch, "serve_p99", smoke=args.smoke, device=dev)
+    model = prog.init_params(torch.Generator(device=dev).manual_seed(0))
+
+    def inputs(r: int) -> dict:
+        return init_inputs(prog, torch.Generator(device=dev).manual_seed(r))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    prog.step(model, inputs(args.requests))  # warm-up: builds the kernels
+    lat = []
+    for r in range(args.requests):
+        batch = inputs(r)                   # drawn outside the timed step
+        sync()
+        t0 = time.perf_counter()
+        scores = prog.step(model, batch)
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = sorted(lat)
+    print(f"{args.requests} requests, batch {scores.shape[0]}: "
+          f"p50={lat[len(lat) // 2]:.1f}ms p99={lat[-1]:.1f}ms")
+
+
 def _sharded_row_reader(sharded):
     """Global doc id -> packed query row, off the shards' mmaps."""
     offsets = list(sharded.offsets) + [sharded.n]
@@ -115,6 +157,12 @@ def _sharded_row_reader(sharded):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="serve a recsys arch's serve_p99 cell (wide-deep)")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="shrink the arch for a fast smoke run "
+                         "(--no-smoke serves the full-size config)")
     ap.add_argument("--index", action="store_true",
                     help="serve the similarity-search index workload")
     ap.add_argument("--requests", type=int, default=4)
@@ -139,9 +187,17 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.index:
-        ap.error("only the --index workload is ported")
-    serve_index(args)
+    if args.index:
+        serve_index(args)
+        return
+    if not args.arch:
+        ap.error("--arch is required unless --index is given")
+    from repro_torch.configs import get_arch
+    try:
+        get_arch(args.arch)
+    except KeyError as e:
+        ap.error(e.args[0])
+    serve_recsys(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Learning on b-bit signatures (``linear``)."""
+"""Learning on b-bit signatures (``linear``) and the recsys models with
+the minhash frontend (``recsys``, ``layers``)."""
