@@ -1,0 +1,253 @@
+#!/usr/bin/env python3
+"""A/B timing of the port's OPH, minhash and packed-match CUDA kernels
+between two checkouts, on one GPU.
+
+Run from the root of a checkout, with a second checkout (for example the
+parent commit, ``git archive HEAD~1 | tar -x -C build/parent``) at DIR:
+
+    python3 kernel_ab.py --parent build/parent [--out build/ab]
+
+It builds ``src/repro_torch/csrc/oph.cu``, ``minhash.cu`` and
+``hamming.cu`` of both checkouts (their C interfaces must match) and
+calls each through THIS checkout's wrappers, swapping the loaded
+library, in turns parent, change, change, parent, at the main paths'
+shapes:
+
+  * ``oph2u`` and ``oph4u`` (k = 512, s = 24, raw values), ``minhash4u``
+    and ``minhash2u``, one 10,000-row chunk at the paper's
+    webspam (trigram) width, k = 500, s = 24, b = 8 (CUDA events, median
+    of 7), and ``minhash2u`` at the Wide & Deep frontend's shape, 512
+    rows x 128 nonzeros, k = 64 (a CUDA graph of 20 launches);
+  * ``packed_match``, k = 512, b = 8: one 256-query x 4,096-doc
+    exact-flush block (a CUDA graph of 20 launches, and eager launches
+    back to back) and 256 queries x 677,399 docs in one launch.
+
+Every output of the change is held bit-exact against the parent's.  It
+prints each kernel's registers and spills (``nvcc -Xptxas -v``), writes
+both checkouts' SASS to ``OUT/<tree>-<source>.sass`` and prints each
+kernel's SASS opcode counts.  Imports nothing of JAX
+or ``repro``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402  (timing helpers, bounds, constants)
+
+SOURCES = ("oph", "minhash", "hamming")
+
+
+def build_tree(root: Path, out: Path, tag: str, nvcc: str, flags) -> dict:
+    """nvcc every source of ``root``'s csrc into ``out``, all at once;
+    returns {source: loaded ctypes library}, and prints ptxas's report."""
+    from repro_torch.kernels import build
+    csrc = root / "src" / "repro_torch" / "csrc"
+    procs, fn = {}, "?"
+    for name in SOURCES:
+        so = out / f"{tag}-lib{name}.so"
+        cmd = [nvcc, *flags, "-Xptxas", "-v", "-I", str(csrc), "-o", str(so),
+               str(csrc / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        text = log.decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"{tag} {name}.cu failed:\n{text}")
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {tag} {name}] {fn}: {line.split('info    :')[-1].strip()}")
+        libs[name] = build.load(name, so)
+        sass = subprocess.run(["cuobjdump", "-sass", str(so)],
+                              capture_output=True, text=True).stdout
+        (out / f"{tag}-{name}.sass").write_text(sass)
+        for fn, ops in opcode_counts(sass).items():
+            top = ", ".join(f"{o} {n}" for o, n in ops.most_common(24))
+            print(f"[sass {tag}] {fn}: {sum(ops.values())} instructions: {top}")
+    return libs
+
+
+def opcode_counts(sass: str) -> dict:
+    """{function: Counter of opcodes} of a ``cuobjdump -sass`` listing."""
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn is not None:
+            out[fn][m.group(1)] += 1
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.core.bbit import pack_codes
+    from repro_torch.core.u32 import from_numpy
+    from repro_torch.data.sparse import from_lists
+    from repro_torch.data.synthetic import DatasetSpec, generate_sets
+    from repro_torch.kernels import build
+    from repro_torch.kernels import hamming as kham
+    from repro_torch.kernels import oph as koph
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.train.online import make_family
+
+    args.out.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    libs = {tag: build_tree(root, args.out, tag, build.nvcc(),
+                            build.NVCC_FLAGS)
+            for tag, root in (("parent", args.parent.resolve()),
+                              ("change", ROOT))}
+    dev = torch.device("cuda")
+
+    def use(tag):
+        for name in SOURCES:
+            build.install(name, libs[tag][name])
+
+    # -- inputs ---------------------------------------------------------------
+    spec = DatasetSpec("webspam_trigram_width", n=12_500, D=2**24,
+                       avg_nnz=3_728, n_prototypes=6, overlap=0.7, seed=7)
+    (sets, labels), _ = generate_sets(spec)
+    chunk = from_lists(sets[:cs.CHUNK], labels[:cs.CHUNK], device=dev)
+    idx, cnt = chunk.indices, chunk.nnz_per_row()
+    total_nnz, n = int(cnt.sum()), idx.shape[0]
+    gen = torch.Generator().manual_seed(cs.SEED)
+    f4 = make_family("4u", cs.K_PAPER, cs.S, generator=gen, device=dev)
+    f2 = make_family("2u", cs.K_PAPER, cs.S, generator=gen, device=dev)
+    f2r = make_family("2u", 64, cs.S, generator=gen, device=dev)
+    o2 = make_family("oph", cs.K_OPH, cs.S, densify="rotation",
+                     generator=gen, device=dev).base
+    o4 = make_family("oph-4u", cs.K_OPH, cs.S, densify="rotation",
+                     generator=gen, device=dev).base
+    bin_bits = cs.K_OPH.bit_length() - 1
+    rng = np.random.default_rng(cs.SEED + 51)
+    rid = from_numpy(rng.integers(0, 2**cs.S, (512, 128)), dev)
+    rcnt = torch.from_numpy(rng.integers(1, 129, 512).astype(np.int32)).to(dev)
+    n_docs, words = cs.N_DOCS, cs.K_IDX * cs.B // 32
+    codes = torch.randint(0, 4, (n_docs, cs.K_IDX), dtype=torch.int32,
+                          device=dev, generator=torch.Generator(
+                              device=dev).manual_seed(cs.SEED + 52))
+    corpus = torch.cat([pack_codes(codes[i:i + 65_536], cs.B)
+                        for i in range(0, n_docs, 65_536)])
+    del codes
+    q = corpus[:cs.N_QUERIES].clone()
+    blk = corpus[:cs.BLOCK]
+
+    cases = {
+        "oph2u k=512": (
+            lambda: koph.oph2u_cuda(idx, cnt, o2.a1, o2.a2, s=cs.S,
+                                    bin_bits=bin_bits, code_b=0),
+            "events", None),
+        "oph4u k=512": (
+            lambda: koph.oph4u_cuda(idx, cnt, o4.a, s=cs.S,
+                                    bin_bits=bin_bits, code_b=0),
+            "events", None),
+        "minhash4u k=500": (
+            lambda: kmin.minhash4u_cuda(idx, cnt, f4.a, s=cs.S, b=cs.B),
+            "events",
+            cs.bound(cs.minhash_bytes(total_nnz, n, cs.K_PAPER, True),
+                     cs.minhash_ops(total_nnz, n, cs.K_PAPER, True, cs.B,
+                                    False))),
+        "minhash2u k=500": (
+            lambda: kmin.minhash2u_cuda(idx, cnt, f2.a1, f2.a2, s=cs.S,
+                                        b=cs.B),
+            "events",
+            cs.bound(cs.minhash_bytes(total_nnz, n, cs.K_PAPER, False),
+                     cs.minhash_ops(total_nnz, n, cs.K_PAPER, False, cs.B,
+                                    False))),
+        "minhash2u recsys 512x128 k=64": (
+            lambda: kmin.minhash2u_cuda(rid, rcnt, f2r.a1, f2r.a2, s=cs.S,
+                                        b=cs.B),
+            "graph", None),
+        "packed_match Q=256 N=4096": (
+            lambda: kham.packed_match_cuda(q, blk, k=cs.K_IDX, code_bits=cs.B),
+            "graph",
+            cs.bound(cs.match_bytes(cs.N_QUERIES, cs.BLOCK, words, False),
+                     cs.match_ops(cs.N_QUERIES, cs.BLOCK, cs.K_IDX, cs.B,
+                                  False))),
+        "packed_match Q=256 N=4096 eager": (
+            lambda: kham.packed_match_cuda(q, blk, k=cs.K_IDX, code_bits=cs.B),
+            "eager", None),
+        "packed_match Q=256 N=677399": (
+            lambda: kham.packed_match_cuda(q, corpus, k=cs.K_IDX,
+                                           code_bits=cs.B),
+            "events",
+            cs.bound(cs.match_bytes(cs.N_QUERIES, n_docs, words, False),
+                     cs.match_ops(cs.N_QUERIES, n_docs, cs.K_IDX, cs.B,
+                                  False))),
+    }
+
+    # -- the change against the parent, bit for bit ----------------------------
+    outs = {}
+    for tag in ("parent", "change"):
+        use(tag)
+        outs[tag] = {name: fn() for name, (fn, how, _) in cases.items()
+                     if how != "eager"}
+    for name in outs["change"]:
+        if not torch.equal(outs["change"][name], outs["parent"][name]):
+            raise AssertionError(f"{name}: change != parent")
+    print(f"[ab] change == parent bit for bit: {', '.join(outs['change'])}",
+          flush=True)
+    del outs
+    use("change")
+    n_edge = cs.check_minhash4u_edges(torch, dev)
+    n_odd = cs.check_match_odd_shapes(torch, dev)
+    print(f"[ab] change == plain versions: minhash4u edge chunk ({n_edge} "
+          f"cases), packed_match odd shapes ({n_odd} cases)", flush=True)
+
+    # -- timings, in turns ----------------------------------------------------------
+    times = collections.defaultdict(list)
+    for tag in ("parent", "change", "change", "parent"):
+        use(tag)
+        for name, (fn, how, _) in cases.items():
+            if how == "events":
+                ms = cs.median_ms(fn, torch)
+            elif how == "graph":
+                ms = cs.graph_ms(fn, torch, cs.BLOCK_LOOP)
+            else:
+                ms = cs.median_ms(lambda: [fn() for _ in range(cs.BLOCK_LOOP)],
+                                  torch) / cs.BLOCK_LOOP
+            times[(name, tag)].append(ms)
+    for name, (_, how, bnd) in cases.items():
+        par, chg = times[(name, "parent")], times[(name, "change")]
+        line = (f"[ab] {name} ({how}): parent {par[0]:.4f} / {par[1]:.4f} ms, "
+                f"change {chg[0]:.4f} / {chg[1]:.4f} ms, change/parent "
+                f"{statistics.mean(chg) / statistics.mean(par):.3f}")
+        if bnd:
+            line += (f"; bound {bnd[0]:.4f} ms ({bnd[1]}): parent "
+                     f"{bnd[0] / statistics.mean(par):.0%}, change "
+                     f"{bnd[0] / statistics.mean(chg):.0%}")
+        print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,22 +13,36 @@
 //
 // Bound: integer operations.  Each (query, doc, word) costs a handful of
 // 32-bit lane instructions against 4 bytes per doc word read once, so the
-// corpus stream is cheap next to the compare work.  Design: one block per
-// (BQ x BN) output tile; the TPU grid's sequential k axis becomes a loop
-// over word steps of TW words inside the block.  Each step stages the
-// query and corpus word tiles in shared memory (one coalesced read per
-// tile, the row stride odd so the threads of a warp hit distinct banks),
-// and each thread keeps the counts of its QPT x NPT pairs in registers.
-//   * code_bits | 32 (b = 8 on the usual wire): a SWAR zero-field count
-//     per word -- the high bit of every all-zero field of x = q ^ c is
-//     ~(((x & lo) + lo) | x) & hi, and __popc counts them.  The last
-//     word's fields past k are masked off.
-//   * any other width (9 bits for sentinel b = 8): codes straddle words,
-//     so each code is pulled out of its word pair with __funnelshift_r,
-//     the same two-shift rule as _extract_codes; a step stages one word
-//     past its end for the codes that start in its last word.  The
-//     fields are extracted once per (query, code) and (doc, code) and
-//     compared once per pair.
+// corpus stream is cheap next to the compare work.  Two kernels, one
+// block per output tile each; the TPU grid's sequential k axis becomes a
+// loop over word steps inside the block.
+//
+//   * swar_kernel, code_bits | 32 (b = 8 on the usual wire).  The high
+//     bit of every all-zero field of x = q ^ c is ~(((x & lo) + lo) | x)
+//     & hi.  Those flag bits sit at each field's top bit, so the flag
+//     words of code_bits consecutive words, shifted right by 0 ..
+//     code_bits - 1, have disjoint bits: they are added into one word and
+//     counted by ONE __popc per code_bits words (POPC issues at a quarter
+//     of the ALU rate), and likewise the EMPTY part of a sentinel wire.
+//     The last word's fields past k are made unmatchable once, while
+//     staging (the query's set to ones, the doc's to zeros; pad words past
+//     W to ones in the query), so no word in the loop takes a mask.  Each
+//     thread holds 4 x 8 pairs in registers, reading 16-byte vectors (4
+//     words of one row) from row-major tiles whose stride of 36 words puts
+//     8 consecutive rows on 32 distinct banks: 3 shared loads per word for
+//     32 pairs.  Word steps are double-buffered with cp.async, so the next
+//     step's global reads overlap this step's compare.  64 x 64 tiles give
+//     the 256-query, 4,096-doc flush launch 256 blocks of 128 threads on
+//     132 SMs.  What is left bounds it: in SASS a pair's word is three
+//     LOP3, an add and one LEA.HI, four of them on the integer ALU pipe,
+//     which takes 64 lanes a clock per SM, half the dispatch rate the
+//     bound counts; that caps the kernel near 62% of its bound.
+//   * straddle_kernel, any other width (9 bits for sentinel b = 8): codes
+//     straddle words, so each code is pulled out of its word pair with
+//     __funnelshift_r, the same two-shift rule as _extract_codes; a step
+//     stages one word past its end for the codes that start in its last
+//     word.  The fields are extracted once per (query, code) and (doc,
+//     code) and compared once per pair.
 // Codes past k never count.  Outputs are int32, written once per pair by
 // the thread that owns it: no atomics, so the counts are deterministic
 // and bit-exact against the plain version.
@@ -38,6 +52,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// ---- swar_kernel tiles ------------------------------------------------
+#define SQ 64                 // queries per output tile
+#define SN 64                 // docs per output tile
+#define SW 32                 // words staged per step
+#define SSTRIDE (SW + 4)      // row stride: 16-byte aligned, conflict-free
+#define STHREADS 128          // 16 (queries) x 8 (docs)
+#define SQPT (SQ / 16)        // queries per thread: ty + 16 a
+#define SNPT (SN / 8)         // docs per thread: tx + 8 d
+
+// ---- straddle_kernel tiles --------------------------------------------
 #define BQ 32                 // queries per output tile
 #define BN 64                 // docs per output tile
 #define TW 32                 // words staged per step
@@ -54,12 +78,176 @@ __device__ __forceinline__ uint32_t zero_fields(uint32_t x, uint32_t hi,
   return ~(((x & lo) + lo) | x) & hi;
 }
 
-template <bool SWAR, bool SENTINEL>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+typedef uint32_t SwarTile[SQ + SN][SSTRIDE];  // query rows, then doc rows
+
+// Copy word step st (words [st*SW, st*SW + SW)) of the block's query and
+// doc rows into tile: 16-byte copies when vec (W % 4 == 0 and both
+// operands 16-byte aligned), else 4-byte ones; rows and words out of range
+// are zero-filled.
+__device__ __forceinline__ void swar_stage(SwarTile& tile,
+                                           const uint32_t* __restrict__ q,
+                                           const uint32_t* __restrict__ c,
+                                           int nq, int nc, int W, int q0,
+                                           int n0, int st, bool vec) {
+  const int w0 = st * SW;
+  const int per = vec ? SW / 4 : SW;  // copies per row
+  for (int i = threadIdx.x; i < (SQ + SN) * per; i += STHREADS) {
+    const int row = i / per, col = (i % per) * (vec ? 4 : 1);
+    const bool is_q = row < SQ;
+    const int g = is_q ? q0 + row : n0 + row - SQ;
+    const bool ok = g < (is_q ? nq : nc) && w0 + col < W;
+    const uint32_t* src =
+        ok ? (is_q ? q : c) + (size_t)g * W + w0 + col : q;
+    if (vec)
+      cp_async16(&tile[row][col], src, ok ? 16 : 0);
+    else
+      cp_async4(&tile[row][col], src, ok ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+// The last step only, by the thread that staged each word: the fields of
+// word W-1 past k never match (query bits set, doc bits cleared), nor do
+// the zero-filled words past W (query words set to all ones).
+__device__ __forceinline__ void swar_mask_tail(SwarTile& tile, int W, int st,
+                                               bool vec, uint32_t last_mask) {
+  const int w0 = st * SW;
+  const int per = vec ? SW / 4 : SW;
+  for (int i = threadIdx.x; i < (SQ + SN) * per; i += STHREADS) {
+    const int row = i / per, col = (i % per) * (vec ? 4 : 1);
+    for (int u = 0; u < (vec ? 4 : 1); ++u) {
+      const int w = w0 + col + u;
+      uint32_t& v = tile[row][col + u];
+      if (w == W - 1)
+        v = row < SQ ? (v | ~last_mask) : (v & last_mask);
+      else if (w >= W && row < SQ)
+        v = 0xFFFFFFFFu;
+    }
+  }
+}
+
+template <int CB, bool SENTINEL>
+__global__ void __launch_bounds__(STHREADS)
+swar_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
+            int nq, int nc, int W, uint32_t hi, uint32_t lo,
+            uint32_t last_mask, int vec_copies, int32_t* __restrict__ matches,
+            int32_t* __restrict__ both) {
+  __shared__ __align__(16) SwarTile tiles[2];
+  const int q0 = blockIdx.y * SQ, n0 = blockIdx.x * SN;
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const bool vec = vec_copies != 0;
+  // words per unrolled group: whole folds of CB words and whole 16-byte
+  // vectors, so every shift is a constant
+  constexpr int GW = CB < 4 ? 4 : CB;
+  uint32_t acc[SQPT][SNPT], acce[SQPT][SNPT];
+  int32_t m[SQPT][SNPT], e[SQPT][SNPT];
+#pragma unroll
+  for (int a = 0; a < SQPT; ++a)
+#pragma unroll
+    for (int d = 0; d < SNPT; ++d) acc[a][d] = acce[a][d] = m[a][d] = e[a][d] = 0;
+
+  const int steps = (W + SW - 1) / SW;
+  swar_stage(tiles[0], q, c, nq, nc, W, q0, n0, 0, vec);
+  for (int st = 0; st < steps; ++st) {
+    SwarTile& tile = tiles[st & 1];
+    if (st + 1 < steps) {
+      // tiles[(st + 1) & 1] was last read in step st - 1, before its
+      // closing __syncthreads
+      swar_stage(tiles[(st + 1) & 1], q, c, nq, nc, W, q0, n0, st + 1, vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+      swar_mask_tail(tile, W, st, vec, last_mask);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int g = 0; g < SW; g += GW) {
+#pragma unroll
+      for (int c4 = 0; c4 < GW; c4 += 4) {
+        uint4 qv[SQPT];
+        uint32_t qe[SQPT][4];
+#pragma unroll
+        for (int a = 0; a < SQPT; ++a) {
+          qv[a] = *reinterpret_cast<const uint4*>(&tile[ty + 16 * a][g + c4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)  // fields equal to EMPTY == hi's field
+            qe[a][i] = SENTINEL ? zero_fields(word_of(qv[a], i) ^ hi, hi, lo)
+                                : 0u;
+        }
+#pragma unroll
+        for (int d = 0; d < SNPT; ++d) {
+          const uint4 cv =
+              *reinterpret_cast<const uint4*>(&tile[SQ + tx + 8 * d][g + c4]);
+#pragma unroll
+          for (int a = 0; a < SQPT; ++a)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int w = c4 + i, sh = w % CB;
+              const uint32_t z =
+                  zero_fields(word_of(qv[a], i) ^ word_of(cv, i), hi, lo);
+              acc[a][d] += z >> sh;
+              if (SENTINEL) acce[a][d] += (z & qe[a][i]) >> sh;
+              if ((w + 1) % CB == 0) {
+                if (SENTINEL) {
+                  const int pe = __popc(acce[a][d]);
+                  e[a][d] += pe;
+                  m[a][d] += __popc(acc[a][d]) - pe;
+                  acce[a][d] = 0;
+                } else {
+                  m[a][d] += __popc(acc[a][d]);
+                }
+                acc[a][d] = 0;
+              }
+            }
+        }
+      }
+    }
+    __syncthreads();  // this tile is no longer read
+  }
+#pragma unroll
+  for (int a = 0; a < SQPT; ++a)
+#pragma unroll
+    for (int d = 0; d < SNPT; ++d) {
+      const int qq = q0 + ty + 16 * a, nn = n0 + tx + 8 * d;
+      if (qq < nq && nn < nc) {
+        matches[(size_t)qq * nc + nn] = m[a][d];
+        if (SENTINEL) both[(size_t)qq * nc + nn] = e[a][d];
+      }
+    }
+}
+
+template <bool SENTINEL>
 __global__ void __launch_bounds__(THREADS)
-hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
-               int nq, int nc, int W, int k, int cb, uint32_t hi, uint32_t lo,
-               uint32_t last_mask, int32_t* __restrict__ matches,
-               int32_t* __restrict__ both) {
+straddle_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
+                int nq, int nc, int W, int k, int cb,
+                int32_t* __restrict__ matches, int32_t* __restrict__ both) {
   __shared__ uint32_t qs[BQ][STRIDE];
   __shared__ uint32_t cs[BN][STRIDE];
   const int q0 = blockIdx.y * BQ, n0 = blockIdx.x * BN;
@@ -86,59 +274,32 @@ hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
     }
     __syncthreads();
     const int wn = min(TW, W - w0);
-    if (SWAR) {
-      for (int w = 0; w < wn; ++w) {
-        const uint32_t valid = (w0 + w == W - 1) ? last_mask : 0xFFFFFFFFu;
-        uint32_t qv[QPT], qe[QPT], cv[NPT];
+    // the codes whose first bit lies in this step's words
+    const int bit0 = w0 * 32;
+    const int j_lo = (bit0 + cb - 1) / cb;
+    const int j_hi = min(k, ((w0 + wn) * 32 + cb - 1) / cb);
+    for (int j = j_lo; j < j_hi; ++j) {
+      const int bit = j * cb - bit0, wl = bit >> 5, sh = bit & 31;
+      uint32_t fq[QPT];
 #pragma unroll
-        for (int a = 0; a < QPT; ++a) {
-          qv[a] = qs[ty + 16 * a][w];
-          // fields of q equal to the EMPTY code 2^(cb-1) == hi's field
-          qe[a] = SENTINEL ? zero_fields(qv[a] ^ hi, hi, lo) : 0u;
-        }
-#pragma unroll
-        for (int d = 0; d < NPT; ++d) cv[d] = cs[tx + 16 * d][w];
-#pragma unroll
-        for (int a = 0; a < QPT; ++a)
-#pragma unroll
-          for (int d = 0; d < NPT; ++d) {
-            const uint32_t z = zero_fields(qv[a] ^ cv[d], hi, lo) & valid;
-            if (SENTINEL) {
-              e[a][d] += __popc(z & qe[a]);
-              m[a][d] += __popc(z & ~qe[a]);
-            } else {
-              m[a][d] += __popc(z);
-            }
-          }
+      for (int a = 0; a < QPT; ++a) {
+        const int r = ty + 16 * a;
+        fq[a] = __funnelshift_r(qs[r][wl], qs[r][wl + 1], sh) & fmask;
       }
-    } else {
-      // the codes whose first bit lies in this step's words
-      const int bit0 = w0 * 32;
-      const int j_lo = (bit0 + cb - 1) / cb;
-      const int j_hi = min(k, ((w0 + wn) * 32 + cb - 1) / cb);
-      for (int j = j_lo; j < j_hi; ++j) {
-        const int bit = j * cb - bit0, wl = bit >> 5, sh = bit & 31;
-        uint32_t fq[QPT];
+#pragma unroll
+      for (int d = 0; d < NPT; ++d) {
+        const int r = tx + 16 * d;
+        const uint32_t fc =
+            __funnelshift_r(cs[r][wl], cs[r][wl + 1], sh) & fmask;
 #pragma unroll
         for (int a = 0; a < QPT; ++a) {
-          const int r = ty + 16 * a;
-          fq[a] = __funnelshift_r(qs[r][wl], qs[r][wl + 1], sh) & fmask;
-        }
-#pragma unroll
-        for (int d = 0; d < NPT; ++d) {
-          const int r = tx + 16 * d;
-          const uint32_t fc =
-              __funnelshift_r(cs[r][wl], cs[r][wl + 1], sh) & fmask;
-#pragma unroll
-          for (int a = 0; a < QPT; ++a) {
-            const int eq = fq[a] == fc;
-            if (SENTINEL) {
-              const int emp = fq[a] == ecode;
-              e[a][d] += eq & emp;
-              m[a][d] += eq & !emp;
-            } else {
-              m[a][d] += eq;
-            }
+          const int eq = fq[a] == fc;
+          if (SENTINEL) {
+            const int emp = fq[a] == ecode;
+            e[a][d] += eq & emp;
+            m[a][d] += eq & !emp;
+          } else {
+            m[a][d] += eq;
           }
         }
       }
@@ -156,14 +317,24 @@ hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
     }
 }
 
-template <bool SWAR, bool SENTINEL>
-static void launch(dim3 grid, cudaStream_t stream, const void* q,
-                   const void* c, int nq, int nc, int W, int k, int cb,
-                   uint32_t hi, uint32_t lo, uint32_t last_mask, void* matches,
-                   void* both) {
-  hamming_kernel<SWAR, SENTINEL><<<grid, THREADS, 0, stream>>>(
-      (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb, hi, lo,
-      last_mask, (int32_t*)matches, (int32_t*)both);
+template <int CB>
+static void launch_swar(bool sentinel, const void* q, const void* c, int nq,
+                        int nc, int W, uint32_t hi, uint32_t lo,
+                        uint32_t last_mask, void* matches, void* both,
+                        cudaStream_t stream) {
+  const dim3 grid((nc + SN - 1) / SN, (nq + SQ - 1) / SQ);
+  const int vec = W % 4 == 0 && (((uintptr_t)q | (uintptr_t)c) & 15) == 0;
+  if constexpr (CB >= 2) {  // 1-bit codes have no sentinel wire
+    if (sentinel) {
+      swar_kernel<CB, true><<<grid, STHREADS, 0, stream>>>(
+          (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, hi, lo,
+          last_mask, vec, (int32_t*)matches, (int32_t*)both);
+      return;
+    }
+  }
+  swar_kernel<CB, false><<<grid, STHREADS, 0, stream>>>(
+      (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, hi, lo, last_mask,
+      vec, (int32_t*)matches, (int32_t*)both);
 }
 
 // q (nq, W) and c (nc, W) packed words; matches (nq, nc) int32; both
@@ -175,20 +346,39 @@ extern "C" int packed_match_launch(const void* q, const void* c, int nq,
                                    uint32_t hi, uint32_t lo,
                                    uint32_t last_mask, void* matches,
                                    void* both, void* stream) {
-  const dim3 grid((nc + BN - 1) / BN, (nq + BQ - 1) / BQ);
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool swar = 32 % cb == 0;
-  if (swar && sentinel)
-    launch<true, true>(grid, s, q, c, nq, nc, W, k, cb, hi, lo, last_mask,
-                       matches, both);
-  else if (swar)
-    launch<true, false>(grid, s, q, c, nq, nc, W, k, cb, hi, lo, last_mask,
-                        matches, both);
-  else if (sentinel)
-    launch<false, true>(grid, s, q, c, nq, nc, W, k, cb, hi, lo, last_mask,
-                        matches, both);
-  else
-    launch<false, false>(grid, s, q, c, nq, nc, W, k, cb, hi, lo, last_mask,
-                         matches, both);
+  const bool sent = sentinel != 0;
+  switch (cb) {
+    case 1:
+      if (sent) return (int)cudaErrorInvalidValue;  // needs code_bits >= 2
+      launch_swar<1>(false, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    case 2:
+      launch_swar<2>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    case 4:
+      launch_swar<4>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    case 8:
+      launch_swar<8>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    case 16:
+      launch_swar<16>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    case 32:
+      launch_swar<32>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
+      break;
+    default: {
+      const dim3 grid((nc + BN - 1) / BN, (nq + BQ - 1) / BQ);
+      if (sent)
+        straddle_kernel<true><<<grid, THREADS, 0, s>>>(
+            (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
+            (int32_t*)matches, (int32_t*)both);
+      else
+        straddle_kernel<false><<<grid, THREADS, 0, s>>>(
+            (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
+            (int32_t*)matches, (int32_t*)both);
+    }
+  }
   return (int)cudaGetLastError();
 }

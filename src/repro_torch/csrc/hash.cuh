@@ -35,3 +35,24 @@ __device__ __forceinline__ uint32_t hash4u(uint32_t t, uint32_t a0, uint32_t a1,
   acc = bitmod_step(acc, t, a0);
   return s < 31 ? (acc & ((1u << s) - 1u)) : (acc % MERSENNE_P);
 }
+
+// The 4U polynomial as a sum of powers, a0 + a1*x1 + a2*x2 + a3*x3 with
+// x1 = t, x2 = t^2 mod p and x3 = t^3 mod p staged once per nonzero, then
+// reduced once to the canonical residue in [0, p).  Domain: every
+// coefficient < p and t < 2^31, where this equals hash4u's Horner result
+// before the s-bit mask (both are the canonical residue of the same
+// polynomial).  Each product is < 2^62, so the sum is < 3*2^62 + 2^31 <
+// 2^64; it can pass 2^63, so fold 1 keeps 64 bits (its result reaches 33
+// bits) and fold 2 is then < 2^31 + 5, one conditional subtract from
+// canonical.
+__device__ __forceinline__ uint32_t powsum4u(uint32_t x1, uint32_t x2,
+                                             uint32_t x3, uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3) {
+  unsigned long long v = (unsigned long long)a1 * x1 + a0;
+  v += (unsigned long long)a2 * x2;
+  v += (unsigned long long)a3 * x3;
+  v = (v & MERSENNE_P) + (v >> 31);                          // fold 1, < 2^33 + 1
+  const uint32_t r = (uint32_t)(v & MERSENNE_P) + (uint32_t)(v >> 31);  // fold 2
+  return min(r, r - MERSENNE_P);                             // r == p -> 0
+}

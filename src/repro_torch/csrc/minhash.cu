@@ -5,50 +5,70 @@
 // (src/repro/kernels/minhash.py: _minhash2u_kernel, _minhash4u_kernel)
 // and their fused epilogue pack_block (src/repro/kernels/pack.py).
 //
-// Bound: integer ALU operations -- n * nnz * k hash-and-min evaluations
-// (2U: multiply-add, shift, min; 4U: three 64-bit Horner steps with
-// BitMod), against only n * nnz * 4 bytes of indices.  Design: one block
-// per (row, group of blockDim.x hash functions); each thread owns ONE
-// hash function j, keeps its coefficients and its running minimum in
-// registers, and the block stages the row's indices in shared memory
-// TILE at a time (one coalesced global read per block), which every
-// thread then reads as broadcast 16-byte loads: one shared load feeds
-// four hash evaluations.  Lanes past counts[i] are never read, so they
-// never win the min.  The epilogue masks to b bits and, when b | 32 and
-// k is a multiple of blockDim.x, packs 32/b consecutive codes into one
-// word with warp shuffles -- the lane-aligned layout of
-// repro.core.bbit.pack_signatures, equal to the pack_codes bitstream.
+// Bound: integer operations -- n * nnz * k hash-and-min evaluations
+// against only n * nnz * 4 bytes of indices.  Both kernels run one block
+// per (row, group of hash functions); a thread keeps its functions'
+// coefficients and running minima in registers, and the block stages the
+// row's nonzeros in shared memory a tile at a time (one coalesced global
+// read per block), which every thread then reads as broadcast loads.
+// Lanes past counts[i] are never read, so they never win the min.
+//
+//   * 2U (minhash2u_kernel): one function per thread; one 16-byte shared
+//     load feeds four multiply-shift evaluations.
+//   * 4U (minhash4u_kernel): Horner's rule costs three dependent 64-bit
+//     BitMod steps per (nonzero, j), most of them on the integer ALU pipe,
+//     which issues at half the dispatch rate.  Instead the block computes
+//     t^2 and t^3 mod p ONCE per nonzero while it stages the tile (two
+//     mulmods shared by all k functions) and each evaluation is three
+//     IMAD.WIDE.U32 into one 64-bit sum and a single reduction
+//     (powsum4u in hash.cuh).  Each thread owns JPT functions, strided by
+//     blockDim.x, so one 16-byte shared load of (t, t^2, t^3) feeds JPT
+//     evaluations.  Outside the domain where the two forms agree
+//     (coefficients < p, t < 2^31) the kernel keeps Horner (hash4u): a
+//     thread with a coefficient >= p takes it for all its functions, and a
+//     tile holding an index >= 2^31 (as uint32) takes it for the whole
+//     block, a flag set while staging.  So the output is bit-equal to
+//     hash4u for every input, with no host check.  Two nonzeros a step let
+//     each running min take one VIMNMX3 per two evaluations.  In SASS an
+//     evaluation is still about 8.5 integer-ALU instructions (the 64-bit
+//     reduction's LOP3, SHF, IADD3, LEA.HI.X and VIADDMNMX, the mask, the
+//     min) beside 3 IMAD.WIDE.U32 on the FMA pipe: the ALU pipe, at half
+//     the dispatch rate, sets the pace.
+//
+// The epilogue masks to b bits and, when b | 32 and k is a multiple of
+// blockDim.x, packs 32/b consecutive codes into one word with warp
+// shuffles -- the lane-aligned layout of repro.core.bbit.pack_signatures,
+// equal to the pack_codes bitstream.
 #include <cuda_runtime.h>
 #include "hash.cuh"
 
-#define TILE 2048
+#define TILE 2048   // 2U: indices staged per step
+#define TILE4 1024  // 4U: nonzeros staged per step, 16 bytes each
+#define JPT 4       // 4U: hash functions per thread
 
-template <bool FOUR_U>
-__device__ __forceinline__ uint32_t hash_j(uint32_t t, uint32_t c0, uint32_t c1,
-                                           uint32_t c2, uint32_t c3, int s,
-                                           bool high) {
-  return FOUR_U ? hash4u(t, c0, c1, c2, c3, s) : hash2u(t, c0, c1, s, high);
+// Pack 32/b consecutive codes of a warp's lanes into one word (every lane
+// of the warp holds a live code j).
+__device__ __forceinline__ void pack_codes_warp(uint32_t m, int b, int j,
+                                                uint32_t* __restrict__ prow) {
+  const int per = 32 / b, lane = threadIdx.x & 31;
+  uint32_t w = m << ((lane % per) * b);
+  for (int o = 1; o < per; o <<= 1) w |= __shfl_xor_sync(0xFFFFFFFFu, w, o);
+  if (lane % per == 0) prow[j / per] = w;
 }
 
-template <bool FOUR_U>
-__global__ void minhash_kernel(const int32_t* __restrict__ idx,
-                               const int32_t* __restrict__ counts, int nnz,
-                               const uint32_t* __restrict__ ca,
-                               const uint32_t* __restrict__ cb, int k, int s,
-                               int high, int b, uint32_t* __restrict__ out,
-                               uint32_t* __restrict__ packed, int words) {
+__global__ void minhash2u_kernel(const int32_t* __restrict__ idx,
+                                 const int32_t* __restrict__ counts, int nnz,
+                                 const uint32_t* __restrict__ ca,
+                                 const uint32_t* __restrict__ cb, int k, int s,
+                                 int high, int b, uint32_t* __restrict__ out,
+                                 uint32_t* __restrict__ packed, int words) {
   __shared__ __align__(16) int32_t tile[TILE];
   const int row = blockIdx.x;
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
   const bool live = j < k;
-  // 2U: ca = a1 (k,), cb = a2 (k,); 4U: ca = a (4, k) row-major
-  uint32_t c0 = 0, c1 = 1, c2 = 0, c3 = 0;
+  uint32_t c0 = 0, c1 = 1;
   if (live) {
-    if (FOUR_U) {
-      c0 = ca[j]; c1 = ca[k + j]; c2 = ca[2 * k + j]; c3 = ca[3 * k + j];
-    } else {
-      c0 = ca[j]; c1 = cb[j];
-    }
+    c0 = ca[j]; c1 = cb[j];
   }
   int cnt = counts[row];
   cnt = cnt < 0 ? 0 : (cnt > nnz ? nnz : cnt);
@@ -64,36 +84,99 @@ __global__ void minhash_kernel(const int32_t* __restrict__ idx,
     int q = 0;
     for (; q + 4 <= lim; q += 4) {
       const int4 v = *reinterpret_cast<const int4*>(&tile[q]);
-      m = min(m, hash_j<FOUR_U>((uint32_t)v.x, c0, c1, c2, c3, s, hi));
-      m = min(m, hash_j<FOUR_U>((uint32_t)v.y, c0, c1, c2, c3, s, hi));
-      m = min(m, hash_j<FOUR_U>((uint32_t)v.z, c0, c1, c2, c3, s, hi));
-      m = min(m, hash_j<FOUR_U>((uint32_t)v.w, c0, c1, c2, c3, s, hi));
+      m = min(m, hash2u((uint32_t)v.x, c0, c1, s, hi));
+      m = min(m, hash2u((uint32_t)v.y, c0, c1, s, hi));
+      m = min(m, hash2u((uint32_t)v.z, c0, c1, s, hi));
+      m = min(m, hash2u((uint32_t)v.w, c0, c1, s, hi));
     }
-    for (; q < lim; ++q)
-      m = min(m, hash_j<FOUR_U>((uint32_t)tile[q], c0, c1, c2, c3, s, hi));
+    for (; q < lim; ++q) m = min(m, hash2u((uint32_t)tile[q], c0, c1, s, hi));
   }
   if (b > 0 && b < 32) m &= (1u << b) - 1u;
   if (live) out[(size_t)row * k + j] = m;
-  if (packed != nullptr) {
-    // every lane is live here (k % blockDim.x == 0, checked by the wrapper)
-    const int per = 32 / b, lane = threadIdx.x & 31;
-    uint32_t w = m << ((lane % per) * b);
-    for (int o = 1; o < per; o <<= 1) w |= __shfl_xor_sync(0xFFFFFFFFu, w, o);
-    if (lane % per == 0) packed[(size_t)row * words + j / per] = w;
-  }
+  // every lane is live here (k % blockDim.x == 0, checked by the wrapper)
+  if (packed != nullptr) pack_codes_warp(m, b, j, packed + (size_t)row * words);
 }
 
-template <bool FOUR_U>
-static int launch(const void* idx, const void* counts, int n, int nnz,
-                  const void* ca, const void* cb, int k, int s, int high, int b,
-                  void* out, void* packed, int words, int threads,
-                  void* stream) {
-  dim3 grid(n, (k + threads - 1) / threads);
-  minhash_kernel<FOUR_U><<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const int32_t*)counts, nnz, (const uint32_t*)ca,
-      (const uint32_t*)cb, k, s, high, b, (uint32_t*)out, (uint32_t*)packed,
-      words);
-  return (int)cudaGetLastError();
+__global__ void minhash4u_kernel(const int32_t* __restrict__ idx,
+                                 const int32_t* __restrict__ counts, int nnz,
+                                 const uint32_t* __restrict__ a, int k, int s,
+                                 int b, uint32_t* __restrict__ out,
+                                 uint32_t* __restrict__ packed, int words) {
+  __shared__ uint4 xs[TILE4];  // (t, t^2 mod p, t^3 mod p, 0)
+  const int row = blockIdx.x;
+  const int j0 = blockIdx.y * blockDim.x * JPT + threadIdx.x;
+  // a is (4, k) row-major: a[0] + a[1] t + a[2] t^2 + a[3] t^3
+  uint32_t c0[JPT], c1[JPT], c2[JPT], c3[JPT];
+  bool in_domain = true;
+#pragma unroll
+  for (int u = 0; u < JPT; ++u) {
+    const int j = j0 + u * blockDim.x;
+    c0[u] = c1[u] = c2[u] = c3[u] = 0u;
+    if (j < k) {
+      c0[u] = a[j]; c1[u] = a[k + j]; c2[u] = a[2 * k + j]; c3[u] = a[3 * k + j];
+    }
+    in_domain &= max(max(c0[u], c1[u]), max(c2[u], c3[u])) < MERSENNE_P;
+  }
+  int cnt = counts[row];
+  cnt = cnt < 0 ? 0 : (cnt > nnz ? nnz : cnt);
+  const int32_t* r = idx + (size_t)row * nnz;
+  // s == 31: the residue is canonical, so hash4u's "% p" changes nothing
+  const uint32_t smask = s < 31 ? (1u << s) - 1u : 0xFFFFFFFFu;
+
+  uint32_t m[JPT];
+#pragma unroll
+  for (int u = 0; u < JPT; ++u) m[u] = SIG_EMPTY;
+  for (int base = 0; base < cnt; base += TILE4) {
+    const int lim = min(TILE4, cnt - base);
+    __syncthreads();  // the previous tile is no longer read
+    uint32_t wide = 0;
+    for (int q = threadIdx.x; q < lim; q += blockDim.x) {
+      const uint32_t t = (uint32_t)r[base + q];
+      wide |= t >> 31;
+      // t^2, t^3 mod p: BitMod products, canonical for t < 2^31
+      const uint32_t t2 = bitmod_step(t, t, 0u);
+      xs[q] = make_uint4(t, t2, bitmod_step(t2, t, 0u), 0u);
+    }
+    const bool horner = __syncthreads_or(wide) || !in_domain;
+    if (!horner) {
+      // two nonzeros a step, so each running min is one VIMNMX3 per pair
+      int q = 0;
+      for (; q + 2 <= lim; q += 2) {
+        const uint4 x = xs[q], y = xs[q + 1];
+#pragma unroll
+        for (int u = 0; u < JPT; ++u)
+          m[u] = min(m[u], min(powsum4u(x.x, x.y, x.z, c0[u], c1[u], c2[u],
+                                        c3[u]) & smask,
+                               powsum4u(y.x, y.y, y.z, c0[u], c1[u], c2[u],
+                                        c3[u]) & smask));
+      }
+      if (q < lim) {
+        const uint4 x = xs[q];
+#pragma unroll
+        for (int u = 0; u < JPT; ++u)
+          m[u] = min(m[u], powsum4u(x.x, x.y, x.z, c0[u], c1[u], c2[u], c3[u])
+                               & smask);
+      }
+    } else {
+      for (int q = 0; q < lim; ++q) {
+        const uint32_t t = xs[q].x;
+#pragma unroll
+        for (int u = 0; u < JPT; ++u)
+          m[u] = min(m[u], hash4u(t, c0[u], c1[u], c2[u], c3[u], s));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < JPT; ++u) {
+    const int jb = j0 - threadIdx.x + u * blockDim.x;  // the group's first j
+    const int j = jb + threadIdx.x;
+    uint32_t v = m[u];
+    if (b > 0 && b < 32) v &= (1u << b) - 1u;
+    if (j < k) out[(size_t)row * k + j] = v;
+    // a group is all live or all past k (k % blockDim.x == 0 when packing)
+    if (packed != nullptr && jb < k)
+      pack_codes_warp(v, b, j, packed + (size_t)row * words);
+  }
 }
 
 // packed may be null (no fused pack); words is its row stride.
@@ -101,14 +184,22 @@ extern "C" int minhash2u_launch(const void* idx, const void* counts, int n,
                                 int nnz, const void* a1, const void* a2, int k,
                                 int s, int high, int b, void* out, void* packed,
                                 int words, int threads, void* stream) {
-  return launch<false>(idx, counts, n, nnz, a1, a2, k, s, high, b, out, packed,
-                       words, threads, stream);
+  const dim3 grid(n, (k + threads - 1) / threads);
+  minhash2u_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const int32_t*)counts, nnz, (const uint32_t*)a1,
+      (const uint32_t*)a2, k, s, high, b, (uint32_t*)out, (uint32_t*)packed,
+      words);
+  return (int)cudaGetLastError();
 }
 
+// threads functions per group, JPT groups per block.
 extern "C" int minhash4u_launch(const void* idx, const void* counts, int n,
                                 int nnz, const void* a, int k, int s, int b,
                                 void* out, void* packed, int words, int threads,
                                 void* stream) {
-  return launch<true>(idx, counts, n, nnz, a, a, k, s, 1, b, out, packed, words,
-                      threads, stream);
+  const dim3 grid(n, (k + threads * JPT - 1) / (threads * JPT));
+  minhash4u_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const int32_t*)counts, nnz, (const uint32_t*)a, k,
+      s, b, (uint32_t*)out, (uint32_t*)packed, words);
+  return (int)cudaGetLastError();
 }

@@ -115,18 +115,32 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
+def load(name: str, path) -> ctypes.CDLL:
+    """Load a shared library built from a ``<name>.cu`` (this checkout's or
+    another's with the same C interface) and declare its C entries."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use, or
+    the one ``install`` gave."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = load(name, _lib_path(name))
         return lib
+
+
+def install(name: str, lib: ctypes.CDLL) -> None:
+    """Send the wrappers of ``csrc/<name>.cu`` to ``lib`` from now on (for
+    timing another checkout's kernel through this checkout's wrappers)."""
+    with _LOCK:
+        _LIBS[name] = lib
 
 
 def check(status: int, what: str) -> None:

@@ -28,7 +28,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.oph import _PLAIN_ELEMS, check_cuda_args
 from repro_torch.kernels.pack import PackSpec
 
-MAX_QUERIES = 65_535 * 32    # grid.y (65,535) x queries per output tile
+# grid.y (65,535) x queries per output tile (32 in the 9-bit kernel, 64
+# in the SWAR one)
+MAX_QUERIES = 65_535 * 32
 
 
 def _check_format(name: str, k: int, code_bits: int, sentinel: bool,

@@ -23,7 +23,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.oph import _PLAIN_ELEMS, check_cuda_args
 from repro_torch.kernels.pack import pack_block
 
-MINHASH_BLK_K = 128   # hash functions (threads) per block; a multiple of 32
+# threads per block, a multiple of 32: one hash function each in 2U, four
+# (strided by this) in 4U; the fused pack packs groups of this many codes
+MINHASH_BLK_K = 128
 
 
 # ---------------------------------------------------------------------------

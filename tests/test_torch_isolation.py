@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package; entry points refuse to
+``chip_smoke.py`` or ``kernel_ab.py``) imports JAX or the JAX package; entry points refuse to
 run on the CPU unless asked; CUDA wrappers refuse CPU tensors."""
 
 import os
@@ -20,7 +20,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, kernel_ab
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(names), bad)
