@@ -73,6 +73,13 @@ INT32_OPS_PER_S = 67e12 / 2
 # folds in two values); its epilogue takes the b-bit mask and, packed,
 # one IMAD per code.  OPH takes bin, offset, the bin's shared address and
 # the atomicMin per nonzero, and three per bin to write sentinel codes.
+# (minhash2u_kernel's loop is these forms exactly: 64 IMAD, 32
+# VIMNMX3.U32 and 4 LDS.128 per 16 nonzeros x 4 functions; its variant
+# low runs on coefficients shifted left, so it too shifts once per
+# (row, j).  On the H100 IMAD and VIMNMX3 do not issue together at the
+# dispatch rate this bound assumes: ~2.6 cycles per warp evaluation, not
+# 1.5.  OPH 4U's Horner hash compiles to ~40 instructions with its
+# scatter, twice the count here.)
 # OPS_REDUCE4, the least reduction of a sum < 2^64 to [0, p): fold 1 in
 # 64 bits -- LOP3 (lo & p), SHF.R.U64 (the low word of v >> 31), IADD3
 # with carry-out and LEA.HI.X (the high word, hi >> 31 plus the carry) --
@@ -106,6 +113,21 @@ EDGE_K = 128
 EDGE_ROWS = (1, 2, 3, 4, 5, 31, 100, 1_023, 1_024, 1_025, 2_047, 2_048,
              2_049, 4_096, 5_000)
 EDGE_T = (0, 1, 2**31 - 2, 2**31 - 1)
+# minhash2u edge chunk (phase 2): row lengths, k, s, b; every case in both
+# variants, and packed where k is a multiple of 128.  k <= 128 runs one
+# function a thread; 256, 500 one block of four a thread; 640 and 1,024
+# two blocks a row (the second partly live at 640)
+EDGE2_ROWS = (0, 1, 2, 3, 4, 5, 31, 2_047, 2_048, 2_049, 5_000)
+EDGE2_K = (1, 33, 64, 128, 256, 500, 640, 1_024)
+EDGE2_S = (1, 24, 31, 32)
+EDGE2_B = (0, 8, 32)
+# OPH edge chunk (phase 2): every nnz % 4, and rows longer than one round
+# of 16-byte loads (4,096 indices at 256 threads)
+OPH_EDGE_NNZ = (125, 126, 127, 128, 20_003)
+# phase 2 times these over a CUDA graph of KERNEL_LOOP launches: one
+# launch is too short to rank on by one pair of events
+LOOP_TIMED = ("oph2u", "oph4u", "minhash2u")
+KERNEL_LOOP = 20
 
 # Retrieval (phase 5): rcv1's document count (Li, Shrivastava & König
 # 2012, Table 1), rows 256 nonzeros wide (rcv1 has ~12,062); OPH 2U,
@@ -200,8 +222,8 @@ def oph_ops(nonzeros: int, n: int, k: int, four_u: bool, code_b: int) -> float:
 
 def minhash_ops(nonzeros: int, n: int, k: int, four_u: bool, b: int,
                 pack: bool) -> float:
-    """2U in variant high, the only one this script runs; 4U as a sum of
-    powers shared across the k functions."""
+    """2U in either variant (both shift once per (row, j)); 4U as a sum
+    of powers shared across the k functions."""
     per_eval = (OPS_MH4U_EVAL if four_u else OPS_2U) + OPS_MIN
     per_nz = OPS_MH4U_STAGE if four_u else 0
     per_out = (0 if four_u else OPS_SHIFT) + (b > 0) + pack
@@ -224,6 +246,12 @@ def minhash_bytes(nonzeros: int, n: int, k: int, four_u: bool,
     (n, k) codes written once, and the packed words when ``pack_b``."""
     return (4 * nonzeros + 4 * n + 4 * k * (4 if four_u else 2) + 4 * n * k
             + n * k * pack_b // 8)
+
+
+def oph_bytes(nonzeros: int, n: int, k: int, four_u: bool) -> float:
+    """Indices and row counts read once, the one function's coefficients,
+    the (n, k) bins written once."""
+    return 4 * nonzeros + 4 * n + 4 * (4 if four_u else 2) + 4 * n * k
 
 
 def match_bytes(nq: int, nc: int, words: int, sentinel: bool) -> float:
@@ -285,6 +313,130 @@ def check_minhash4u_edges(torch, dev) -> int:
                         f"b={b}, pack={pack}): kernel != plain version "
                         f"(max |err| {err})")
                 cases += 1
+    return cases
+
+
+def wrap_index(a1: int, a2: int, target: int) -> int:
+    """The t with a1 + a2 * t == target (mod 2^32), for odd a2."""
+    return (target - a1) * pow(a2, -1, 2**32) % 2**32
+
+
+def check_minhash2u_edges(torch, dev) -> int:
+    """``minhash2u`` bit-exact against its plain version where the
+    kernel's running min of raw values and its one shift per (row, j)
+    could part from a shift or mask per evaluation: rows of EDGE2_ROWS
+    nonzeros (0 included), a row whose one nonzero hashes to 0xFFFFFFFF
+    under column 0 (the non-empty maximum, unlike an empty row), indices
+    whose a1 + a2 t wraps to 0xFFFFFFFF and to 0 under the first and last
+    columns, a row of counts -3 and one of counts > nnz (data in every
+    lane), coefficient columns (0, 1) and (2^32 - 1, 2^32 - 1); k in
+    EDGE2_K, s in EDGE2_S, b in EDGE2_B, variants high and low, pack on
+    where k is a multiple of 128 and b = 8.  Returns the number of cases;
+    raises on any difference."""
+    import numpy as np
+
+    from repro_torch.core.u32 import from_numpy
+    from repro_torch.kernels import minhash as kmin
+
+    rng = np.random.default_rng(SEED + 33)
+    cases = 0
+    for k in EDGE2_K:
+        a1 = rng.integers(0, 2**32, k, dtype=np.uint64)
+        a2 = rng.integers(0, 2**32, k, dtype=np.uint64) | np.uint64(1)
+        if k >= 3:
+            a1[1], a2[1] = 0, 1
+            a1[2], a2[2] = 2**32 - 1, 2**32 - 1
+        wrap = [wrap_index(int(a1[j]), int(a2[j]), target)
+                for j in sorted({0, k - 1}) for target in (2**32 - 1, 0)]
+        rows = []
+        for n in EDGE2_ROWS:
+            t = rng.integers(0, 2**32, n, dtype=np.uint64)
+            at = rng.choice(n, min(n, len(wrap)), replace=False)
+            t[at] = wrap[:len(at)]
+            rows.append(t)
+        rows.append(np.array(wrap[:1], np.uint64))
+        counts = [len(t) for t in rows]
+        width = -(-max(counts) // 128) * 128
+        rows += [rng.integers(0, 2**32, width, dtype=np.uint64)] * 2
+        counts += [-3, 2 * width]
+        idx = np.zeros((len(rows), width), np.uint32)
+        for i, t in enumerate(rows):
+            idx[i, :len(t)] = t
+        idx = from_numpy(idx, dev)
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        coef = (from_numpy(a1, dev), from_numpy(a2, dev))
+        for s in EDGE2_S:
+            for b in EDGE2_B:
+                packs = ((False, True) if k % kmin.MINHASH_BLK_K == 0
+                         and b == B else (False,))
+                for variant in ("high", "low"):
+                    for pack in packs:
+                        kw = dict(s=s, b=b, variant=variant, pack=pack)
+                        got = kmin.minhash2u_cuda(idx, cnt, *coef, **kw)
+                        want = kmin.minhash2u_plain(idx, cnt, *coef, **kw)
+                        pairs = zip(got, want) if pack else [(got, want)]
+                        err = max(max_abs_err(g, w) for g, w in pairs)
+                        if err:
+                            raise AssertionError(
+                                f"minhash2u edge chunk (k={k}, s={s}, b={b},"
+                                f" {variant}, pack={pack}): kernel != plain "
+                                f"version (max |err| {err})")
+                        cases += 1
+    return cases
+
+
+def check_oph_edges(torch, dev) -> int:
+    """``oph2u`` (variants high and low) and ``oph4u`` bit-exact against
+    their plain versions on widths nnz in OPH_EDGE_NNZ (every nnz % 4, so
+    rows start at every 4-byte offset of a 16-byte word, and 20,003
+    lanes: several rounds of loads), with the batch at the allocation's
+    base and one element past it (an unaligned base); counts 0 to nnz,
+    -1 and past nnz; bin_bits in {0, 9}, code_b in {0, 8}, s = 24.
+    Returns the number of cases; raises on any difference."""
+    import numpy as np
+
+    from repro_torch.core.u32 import from_numpy
+    from repro_torch.kernels import oph as koph
+
+    rng = np.random.default_rng(SEED + 35)
+    a1 = from_numpy(rng.integers(0, 2**32, 1, dtype=np.uint64), dev)
+    a2 = from_numpy(rng.integers(0, 2**32, 1, dtype=np.uint64) | np.uint64(1),
+                    dev)
+    a4 = from_numpy(rng.integers(0, 2**31 - 1, (4, 1)), dev)
+    kinds = [  # label, kernel, plain version, coefficients, keywords
+        ("oph2u high", koph.oph2u_cuda, koph.oph2u_plain, (a1, a2),
+         {"variant": "high"}),
+        ("oph2u low", koph.oph2u_cuda, koph.oph2u_plain, (a1, a2),
+         {"variant": "low"}),
+        ("oph4u", koph.oph4u_cuda, koph.oph4u_plain, (a4,), {}),
+    ]
+    cases = 0
+    for nnz in OPH_EDGE_NNZ:
+        counts = [0, 1, 2, 3, 4, 5, 6, 7, nnz - 1, nnz, nnz + 7, -1]
+        if nnz > 4_096:
+            counts += [4_095, 4_096, 4_097, 17_000]
+        counts += list(rng.integers(0, nnz + 1, 12))
+        n = len(counts)
+        vals = from_numpy(rng.integers(0, 2**32, n * nnz, dtype=np.uint64),
+                          dev)
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        for off in (0, 1):
+            buf = torch.zeros(n * nnz + off, dtype=torch.int32, device=dev)
+            buf[off:] = vals
+            idx = buf[off:].view(n, nnz)
+            for bin_bits in (0, 9):
+                for code_b in (0, B):
+                    for label, cuda, plain, coef, kw in kinds:
+                        kw = dict(kw, s=S, bin_bits=bin_bits, code_b=code_b)
+                        err = max_abs_err(cuda(idx, cnt, *coef, **kw),
+                                          plain(idx, cnt, *coef, **kw))
+                        if err:
+                            raise AssertionError(
+                                f"{label} edge chunk (nnz={nnz}, offset "
+                                f"{off}, bin_bits={bin_bits}, code_b="
+                                f"{code_b}): kernel != plain version "
+                                f"(max |err| {err})")
+                        cases += 1
     return cases
 
 
@@ -421,7 +573,6 @@ def run(torch) -> int:
     n, nnz = idx.shape
     total_nnz = int(cnt.sum())
     log(f"[chunk] n={n} nnz(padded)={nnz} nonzeros={total_nnz}")
-    in_bytes = 4 * total_nnz + 4 * n      # indices read once, counts
     plain_out = {}
     rows = {}
 
@@ -436,8 +587,14 @@ def run(torch) -> int:
             raise AssertionError(f"{label}: kernel != plain version "
                                  f"(max |err| {err})")
         ms = median_ms(kernel_fn, torch)
+        how = f"median of {REPS} (CUDA events)"
+        if name in LOOP_TIMED:
+            single, ms = ms, graph_ms(kernel_fn, torch, KERNEL_LOOP)
+            how = (f"median of {REPS} replays of a CUDA graph of "
+                   f"{KERNEL_LOOP} launches; one launch by CUDA events "
+                   f"{single:.4f} ms")
         b_ms, b_by = bound(nbytes, ops)
-        log(f"[kernel] {label}: {ms:.4f} ms median of {REPS} (CUDA events), "
+        log(f"[kernel] {label}: {ms:.4f} ms ({how}), "
             f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.1f} ms (1 call), "
             f"bit-exact on all {n} rows, launches {wrappers[name].launches}")
         if main:
@@ -451,14 +608,13 @@ def run(torch) -> int:
     bin_bits = K_OPH.bit_length() - 1
     base2, base4 = fams["oph2u"].base, fams["oph4u"].base
     for code_b in (0, B):
-        out_bytes = 4 * n * K_OPH
         plain_out[("oph2u", code_b)] = check(
             f"oph2u k={K_OPH} s={S} code_b={code_b}", "oph2u",
             lambda: koph.oph2u_cuda(idx, cnt, base2.a1, base2.a2, s=S,
                                     bin_bits=bin_bits, code_b=code_b),
             lambda: koph.oph2u_plain(idx, cnt, base2.a1, base2.a2, s=S,
                                      bin_bits=bin_bits, code_b=code_b),
-            in_bytes + 4 * 2 + out_bytes,
+            oph_bytes(total_nnz, n, K_OPH, False),
             oph_ops(total_nnz, n, K_OPH, False, code_b),
             main=code_b == 0)
         plain_out[("oph4u", code_b)] = check(
@@ -467,7 +623,7 @@ def run(torch) -> int:
                                     code_b=code_b),
             lambda: koph.oph4u_plain(idx, cnt, base4.a, s=S,
                                      bin_bits=bin_bits, code_b=code_b),
-            in_bytes + 4 * 4 + out_bytes,
+            oph_bytes(total_nnz, n, K_OPH, True),
             oph_ops(total_nnz, n, K_OPH, True, code_b),
             main=code_b == 0)
     for k in (K_MIN, K_PAPER):
@@ -490,6 +646,15 @@ def run(torch) -> int:
     log(f"[kernel] minhash4u edge chunk: k={EDGE_K}, rows of {EDGE_ROWS[0]} "
         f"to {EDGE_ROWS[-1]} nonzeros with indices {EDGE_T} and >= 2^31, "
         f"coefficients < p and >= p: bit-exact in all {n_edge} cases")
+    n_edge = check_minhash2u_edges(torch, dev)
+    log(f"[kernel] minhash2u edge chunk: rows of {EDGE2_ROWS} nonzeros, "
+        f"counts < 0 and > nnz, a1 + a2 t wrapping to 0xFFFFFFFF and 0, k in "
+        f"{EDGE2_K}, s in {EDGE2_S}, b in {EDGE2_B}, variants high and low, "
+        f"pack where k % 128 == 0: bit-exact in all {n_edge} cases")
+    n_edge = check_oph_edges(torch, dev)
+    log(f"[kernel] oph2u / oph4u edge chunk: nnz in {OPH_EDGE_NNZ}, aligned "
+        f"and unaligned base, counts 0 to nnz, < 0 and > nnz, bin_bits in "
+        f"(0, 9), code_b in (0, {B}): bit-exact in all {n_edge} cases")
     log(f"kernels checked: {', '.join(sorted(rows))}")
 
     # -- phase 3: the main path, online learning -------------------------

@@ -15,18 +15,23 @@ shapes:
 
   * ``oph2u`` and ``oph4u`` (k = 512, s = 24, raw values), ``minhash4u``
     and ``minhash2u``, one 10,000-row chunk at the paper's
-    webspam (trigram) width, k = 500, s = 24, b = 8 (CUDA events, median
-    of 7), and ``minhash2u`` at the Wide & Deep frontend's shape, 512
+    webspam (trigram) width, k = 500, s = 24, b = 8 (``minhash4u`` by
+    CUDA events around one launch, median of 7; the other three by a
+    CUDA graph of 20 launches, and by events around one launch beside
+    it), and ``minhash2u`` at the Wide & Deep frontend's shape, 512
     rows x 128 nonzeros, k = 64 (a CUDA graph of 20 launches);
   * ``packed_match``, k = 512, b = 8: one 256-query x 4,096-doc
     exact-flush block (a CUDA graph of 20 launches, and eager launches
     back to back) and 256 queries x 677,399 docs in one launch.
 
-Every output of the change is held bit-exact against the parent's.  It
-prints each kernel's registers and spills (``nvcc -Xptxas -v``), writes
-both checkouts' SASS to ``OUT/<tree>-<source>.sass`` and prints each
-kernel's SASS opcode counts.  Imports nothing of JAX
-or ``repro``.
+Every output of the change is held bit-exact against the parent's, and
+the change against the plain versions on ``chip_smoke.py``'s edge chunks
+(``minhash4u``, ``minhash2u``, ``oph2u`` / ``oph4u``) and packed-match odd
+shapes.  To compare another design, pass its checkout as ``--parent``
+(one call can run the script more than once).  It prints each kernel's
+registers and spills (``nvcc -Xptxas -v``), writes both checkouts' SASS
+to ``OUT/<tree>-<source>.sass`` and prints each kernel's SASS opcode
+counts.  Imports nothing of JAX or ``repro``.
 """
 
 from __future__ import annotations
@@ -161,15 +166,18 @@ def main(argv=None) -> int:
     q = corpus[:cs.N_QUERIES].clone()
     blk = corpus[:cs.BLOCK]
 
+    oph_bound = {four_u: cs.bound(
+        cs.oph_bytes(total_nnz, n, cs.K_OPH, four_u),
+        cs.oph_ops(total_nnz, n, cs.K_OPH, four_u, 0)) for four_u in (0, 1)}
     cases = {
         "oph2u k=512": (
             lambda: koph.oph2u_cuda(idx, cnt, o2.a1, o2.a2, s=cs.S,
                                     bin_bits=bin_bits, code_b=0),
-            "events", None),
+            "graph", oph_bound[0]),
         "oph4u k=512": (
             lambda: koph.oph4u_cuda(idx, cnt, o4.a, s=cs.S,
                                     bin_bits=bin_bits, code_b=0),
-            "events", None),
+            "graph", oph_bound[1]),
         "minhash4u k=500": (
             lambda: kmin.minhash4u_cuda(idx, cnt, f4.a, s=cs.S, b=cs.B),
             "events",
@@ -179,7 +187,7 @@ def main(argv=None) -> int:
         "minhash2u k=500": (
             lambda: kmin.minhash2u_cuda(idx, cnt, f2.a1, f2.a2, s=cs.S,
                                         b=cs.B),
-            "events",
+            "graph",
             cs.bound(cs.minhash_bytes(total_nnz, n, cs.K_PAPER, False),
                      cs.minhash_ops(total_nnz, n, cs.K_PAPER, False, cs.B,
                                     False))),
@@ -205,12 +213,16 @@ def main(argv=None) -> int:
                                   False))),
     }
 
+    # one launch by CUDA events beside each graph-timed chunk kernel
+    for name in ("oph2u k=512", "oph4u k=512", "minhash2u k=500"):
+        cases[f"{name} single"] = (cases[name][0], "events", None)
+
     # -- the change against the parent, bit for bit ----------------------------
     outs = {}
     for tag in ("parent", "change"):
         use(tag)
         outs[tag] = {name: fn() for name, (fn, how, _) in cases.items()
-                     if how != "eager"}
+                     if how != "eager" and not name.endswith(" single")}
     for name in outs["change"]:
         if not torch.equal(outs["change"][name], outs["parent"][name]):
             raise AssertionError(f"{name}: change != parent")
@@ -219,9 +231,13 @@ def main(argv=None) -> int:
     del outs
     use("change")
     n_edge = cs.check_minhash4u_edges(torch, dev)
+    n_edge2 = cs.check_minhash2u_edges(torch, dev)
+    n_oph = cs.check_oph_edges(torch, dev)
     n_odd = cs.check_match_odd_shapes(torch, dev)
     print(f"[ab] change == plain versions: minhash4u edge chunk ({n_edge} "
-          f"cases), packed_match odd shapes ({n_odd} cases)", flush=True)
+          f"cases), minhash2u edge chunk ({n_edge2} cases), oph2u / oph4u "
+          f"edge chunk ({n_oph} cases), packed_match odd shapes ({n_odd} "
+          f"cases)", flush=True)
 
     # -- timings, in turns ----------------------------------------------------------
     times = collections.defaultdict(list)
@@ -231,7 +247,7 @@ def main(argv=None) -> int:
             if how == "events":
                 ms = cs.median_ms(fn, torch)
             elif how == "graph":
-                ms = cs.graph_ms(fn, torch, cs.BLOCK_LOOP)
+                ms = cs.graph_ms(fn, torch, cs.KERNEL_LOOP)
             else:
                 ms = cs.median_ms(lambda: [fn() for _ in range(cs.BLOCK_LOOP)],
                                   torch) / cs.BLOCK_LOOP

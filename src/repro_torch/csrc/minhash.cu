@@ -6,15 +6,36 @@
 // and their fused epilogue pack_block (src/repro/kernels/pack.py).
 //
 // Bound: integer operations -- n * nnz * k hash-and-min evaluations
-// against only n * nnz * 4 bytes of indices.  Both kernels run one block
-// per (row, group of hash functions); a thread keeps its functions'
-// coefficients and running minima in registers, and the block stages the
-// row's nonzeros in shared memory a tile at a time (one coalesced global
-// read per block), which every thread then reads as broadcast loads.
-// Lanes past counts[i] are never read, so they never win the min.
+// against only n * nnz * 4 bytes of indices.  A thread keeps JPT (or, at
+// small k, one) functions' coefficients and running minima in
+// registers, strided by blockDim.x; the block stages the row's nonzeros
+// in shared memory a tile at a time (one coalesced global read), which
+// every thread then reads as broadcast 16-byte loads.  Lanes past
+// counts[i] are never read, so they never win the min.
 //
-//   * 2U (minhash2u_kernel): one function per thread; one 16-byte shared
-//     load feeds four multiply-shift evaluations.
+//   * 2U (minhash2u_kernel): the least work is one IMAD per evaluation
+//     (a1 + a2 t, mod 2^32) and half a three-input min.  The kernel keeps
+//     the running min of that raw value and applies the variant once per
+//     (row, j) in the epilogue: variant high's shift keeps order, so
+//     min(v >> x) == (min v) >> x with x = 32 - s, and variant low runs on
+//     coefficients shifted left by x, whose value (a1 << x) + (a2 << x) t
+//     == v << x == (v & (2^s - 1)) << x (mod 2^32) orders the masked
+//     hashes the same way; >> x gives back their min.  A row with no
+//     nonzero keeps SIG_EMPTY unshifted (its shifted form, 2^s - 1, is a
+//     real hash value); s == 32 shifts by 0.  Both variants run the same
+//     loop, with no branch in it.  One block covers a row's k <= 512
+//     functions (4 a thread at 128 threads), so the row's indices are read
+//     from device memory once, and one 16-byte shared load of 4 nonzeros
+//     feeds 16 evaluations in 4 independent min chains; the loop is
+//     unrolled to four such loads.  Its SASS is exactly 64 IMAD, 32
+//     VIMNMX3.U32 and 4 LDS.128 per 16 nonzeros, plus uniform-datapath
+//     loop control.  On the H100 that issues at ~2.6 cycles per warp
+//     evaluation (the SM clock at 1980 MHz throughout), not the 1.5 of
+//     one instruction a cycle: IMAD and VIMNMX3 do not both issue at the
+//     dispatch rate, so the kernel sits near 56% of a bound that counts
+//     every instruction at that rate.  For k <= 128
+//     (the recsys frontend's k = 64) a block is k rounded up to 32
+//     threads, one function each, so none idles.
 //   * 4U (minhash4u_kernel): Horner's rule costs three dependent 64-bit
 //     BitMod steps per (nonzero, j), most of them on the integer ALU pipe,
 //     which issues at half the dispatch rate.  Instead the block computes
@@ -44,7 +65,7 @@
 
 #define TILE 2048   // 2U: indices staged per step
 #define TILE4 1024  // 4U: nonzeros staged per step, 16 bytes each
-#define JPT 4       // 4U: hash functions per thread
+#define JPT 4       // hash functions per thread (2U at k > one group, 4U)
 
 // Pack 32/b consecutive codes of a warp's lanes into one word (every lane
 // of the warp holds a live code j).
@@ -56,6 +77,9 @@ __device__ __forceinline__ void pack_codes_warp(uint32_t m, int b, int j,
   if (lane % per == 0) prow[j / per] = w;
 }
 
+// 2U, J functions a thread: the running min of the raw a1 + a2 t, one
+// shift per (row, j) after it (see the note at the top).
+template <int J>
 __global__ void minhash2u_kernel(const int32_t* __restrict__ idx,
                                  const int32_t* __restrict__ counts, int nnz,
                                  const uint32_t* __restrict__ ca,
@@ -64,37 +88,56 @@ __global__ void minhash2u_kernel(const int32_t* __restrict__ idx,
                                  uint32_t* __restrict__ packed, int words) {
   __shared__ __align__(16) int32_t tile[TILE];
   const int row = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = j < k;
-  uint32_t c0 = 0, c1 = 1;
-  if (live) {
-    c0 = ca[j]; c1 = cb[j];
+  const int j0 = blockIdx.y * blockDim.x * J + threadIdx.x;
+  const int x = s < 32 ? 32 - s : 0;  // the epilogue's shift
+  const int pre = high ? 0 : x;       // variant low: coefficients << x
+  uint32_t c0[J], c1[J], m[J];
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int j = j0 + u * blockDim.x;
+    c0[u] = c1[u] = 0u;
+    if (j < k) {
+      c0[u] = ca[j] << pre; c1[u] = cb[j] << pre;
+    }
+    m[u] = SIG_EMPTY;
   }
   int cnt = counts[row];
   cnt = cnt < 0 ? 0 : (cnt > nnz ? nnz : cnt);
   const int32_t* r = idx + (size_t)row * nnz;
-  const bool hi = high != 0;
 
-  uint32_t m = SIG_EMPTY;
   for (int base = 0; base < cnt; base += TILE) {
     const int lim = min(TILE, cnt - base);
     __syncthreads();  // the previous tile is no longer read
     for (int q = threadIdx.x; q < lim; q += blockDim.x) tile[q] = r[base + q];
     __syncthreads();
     int q = 0;
+    // one 16-byte load feeds 4*J evaluations; two values per min; four
+    // loads an iteration keep the loop's own instructions few
+#pragma unroll 4
     for (; q + 4 <= lim; q += 4) {
-      const int4 v = *reinterpret_cast<const int4*>(&tile[q]);
-      m = min(m, hash2u((uint32_t)v.x, c0, c1, s, hi));
-      m = min(m, hash2u((uint32_t)v.y, c0, c1, s, hi));
-      m = min(m, hash2u((uint32_t)v.z, c0, c1, s, hi));
-      m = min(m, hash2u((uint32_t)v.w, c0, c1, s, hi));
+      const uint4 v = *reinterpret_cast<const uint4*>(&tile[q]);
+#pragma unroll
+      for (int u = 0; u < J; ++u) {
+        m[u] = min(m[u], min(c0[u] + c1[u] * v.x, c0[u] + c1[u] * v.y));
+        m[u] = min(m[u], min(c0[u] + c1[u] * v.z, c0[u] + c1[u] * v.w));
+      }
     }
-    for (; q < lim; ++q) m = min(m, hash2u((uint32_t)tile[q], c0, c1, s, hi));
+    for (; q < lim; ++q) {
+      const uint32_t t = (uint32_t)tile[q];
+#pragma unroll
+      for (int u = 0; u < J; ++u) m[u] = min(m[u], c0[u] + c1[u] * t);
+    }
   }
-  if (b > 0 && b < 32) m &= (1u << b) - 1u;
-  if (live) out[(size_t)row * k + j] = m;
-  // every lane is live here (k % blockDim.x == 0, checked by the wrapper)
-  if (packed != nullptr) pack_codes_warp(m, b, j, packed + (size_t)row * words);
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int j = j0 + u * blockDim.x;
+    uint32_t v = cnt > 0 ? m[u] >> x : SIG_EMPTY;
+    if (b > 0 && b < 32) v &= (1u << b) - 1u;
+    if (j < k) out[(size_t)row * k + j] = v;
+    // a warp packs when all its lanes are live (k % 128 == 0 when packing)
+    if (packed != nullptr && (j | 31) < k)
+      pack_codes_warp(v, b, j, packed + (size_t)row * words);
+  }
 }
 
 __global__ void minhash4u_kernel(const int32_t* __restrict__ idx,
@@ -179,13 +222,21 @@ __global__ void minhash4u_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-// packed may be null (no fused pack); words is its row stride.
+// packed may be null (no fused pack); words is its row stride.  threads is
+// the group size, a multiple of 32 (cut to k rounded up to 32 when k is
+// smaller).  A thread takes one function when one group covers k (the
+// recsys frontend's k = 64), else JPT groups, so one block covers a row's
+// k <= JPT * threads functions (the paper's k = 500, 512) and reads its
+// indices once; a larger k takes more blocks a row.
 extern "C" int minhash2u_launch(const void* idx, const void* counts, int n,
                                 int nnz, const void* a1, const void* a2, int k,
                                 int s, int high, int b, void* out, void* packed,
                                 int words, int threads, void* stream) {
-  const dim3 grid(n, (k + threads - 1) / threads);
-  minhash2u_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const int bd = min(threads, (k + 31) / 32 * 32);
+  const int j = k <= bd ? 1 : JPT;
+  const dim3 grid(n, (k + bd * j - 1) / (bd * j));
+  auto kernel = j == 1 ? minhash2u_kernel<1> : minhash2u_kernel<JPT>;
+  kernel<<<grid, bd, 0, (cudaStream_t)stream>>>(
       (const int32_t*)idx, (const int32_t*)counts, nnz, (const uint32_t*)a1,
       (const uint32_t*)a2, k, s, high, b, (uint32_t*)out, (uint32_t*)packed,
       words);

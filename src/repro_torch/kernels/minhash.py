@@ -23,8 +23,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.oph import _PLAIN_ELEMS, check_cuda_args
 from repro_torch.kernels.pack import pack_block
 
-# threads per block, a multiple of 32: one hash function each in 2U, four
-# (strided by this) in 4U; the fused pack packs groups of this many codes
+# threads per block, a multiple of 32: four hash functions each (strided
+# by this) in 4U; in 2U one when k <= 128 (k rounded up to 32 threads),
+# else four, so that one block covers a row's k <= 512 functions; the
+# fused pack packs groups of this many codes
 MINHASH_BLK_K = 128
 
 

@@ -24,7 +24,10 @@ from repro_torch.core.u32 import EMPTY, narrow
 from repro_torch.device import same_device
 from repro_torch.kernels import build
 
-OPH_THREADS = 256     # threads per block (one block per row); a multiple of 32
+# threads per block (one block per row) of 2U, a multiple of 64 (oph.cu's
+# launcher rejects any other); 4U runs OPH_THREADS // 2 threads with twice
+# the 16-byte loads each (oph.cu's OPH_VPT = 4 for 2U, 8 for 4U)
+OPH_THREADS = 256
 MAX_BIN_BITS = 13     # k <= 8192 bins: 32 KB of shared memory per block
 _PLAIN_ELEMS = 1 << 27   # int64 elements per plain-version row chunk (1 GB)
 

@@ -11,6 +11,11 @@ numpy (uint64 holding the kernels' 32- and 64-bit registers), on the CPU.
   takes Horner's rule itself (a per-thread flag for coefficients >= p, a
   per-tile flag for t >= 2^31); the dispatch model must equal the
   reference exactly for every input.
+* ``minhash2u_kernel`` (csrc/minhash.cu): the running min of the raw
+  32-bit a1 + a2 t, one shift >> (32 - s) per (row, j) after it, variant
+  low on coefficients shifted left by 32 - s, a row with no lane left at
+  0xFFFFFFFF -- must equal ``repro.kernels.minhash.minhash2u_pallas``
+  (a shift or mask per evaluation) in interpret mode EXACTLY.
 * ``swar_kernel`` (csrc/hamming.cu): zero-field flags of code_bits
   consecutive words shifted right by 0 .. code_bits - 1 and added into one
   word, one popcount per group, with the last word's fields past k made
@@ -27,6 +32,7 @@ import pytest
 
 from repro.core.hashing import hash4u_apply
 from repro.core.bbit import pack_codes as j_pack_codes
+from repro.kernels.minhash import minhash2u_pallas
 from repro_torch.core.u32 import from_numpy
 from repro_torch.kernels import hamming as kham
 
@@ -140,6 +146,76 @@ def test_minhash4u_dispatch_model_equals_reference(s):
             want = _reference(t, *(np.full(t.shape, c) for c in col), s)
             assert int(h.min()) == int(want.min()), (t, col)
             np.testing.assert_array_equal(h, want)
+
+
+# ---------------------------------------------------------------------------
+# minhash2u: the shift hoisted out of the running min
+# ---------------------------------------------------------------------------
+
+EMPTY = 0xFFFFFFFF
+
+
+def _minhash2u_hoisted(idx, counts, a1, a2, s, b, variant):
+    """minhash2u_kernel: per (row, j) the running min of the raw
+    c0 + c1 t (mod 2^32) over the row's first clamp(counts) lanes, two
+    values a min in the 16-byte steps, one at a time in the tail; then one
+    shift >> x, x = 32 - s (0 at s = 32), unless the row had no lane; then
+    the b-bit mask.  Variant low runs on c = a << x."""
+    n, nnz = idx.shape
+    x = 32 - s if s < 32 else 0
+    pre = U(0 if variant == "high" else x)
+    c0 = (a1.astype(np.uint64) << pre) & M32
+    c1 = (a2.astype(np.uint64) << pre) & M32
+    out = np.empty((n, a1.shape[0]), np.uint64)
+    for i in range(n):
+        cnt = min(max(int(counts[i]), 0), nnz)
+        m = np.full(a1.shape[0], EMPTY, np.uint64)
+        t = idx[i, :cnt].astype(np.uint64)
+        v = (c0[None, :] + c1[None, :] * t[:, None]) & M32      # (cnt, k)
+        q = cnt - cnt % 4
+        for p0 in range(0, q, 2):                  # 16-byte steps, in pairs
+            m = np.minimum(m, np.minimum(v[p0], v[p0 + 1]))
+        for p0 in range(q, cnt):                   # the tile's tail
+            m = np.minimum(m, v[p0])
+        out[i] = (m >> U(x)) if cnt > 0 else m
+    if 0 < b < 32:
+        out &= U((1 << b) - 1)
+    return out
+
+
+def _wrap_index(a1, a2, target):
+    return (target - int(a1)) * pow(int(a2), -1, 2**32) % 2**32
+
+
+@pytest.mark.parametrize("variant", ["high", "low"])
+@pytest.mark.parametrize("s", [1, 24, 32])
+def test_minhash2u_hoisted_shift_equals_pallas(s, variant):
+    """Rows of 0 to 13 lanes, counts < 0 and > nnz, a row whose one lane
+    hashes to 0xFFFFFFFF under column 0 (the non-empty maximum) and lanes
+    wrapping to 0 and 0xFFFFFFFF; k in {1, 33, 64}, b in {0, 8, 32}."""
+    rng = np.random.default_rng(151 + s)
+    nnz = 16
+    for k in (1, 33, 64):
+        a1 = rng.integers(0, 2**32, k, dtype=np.uint64)
+        a2 = rng.integers(0, 2**32, k, dtype=np.uint64) | U(1)
+        if k > 2:
+            a1[1], a2[1] = 0, 1
+        wrap = [_wrap_index(a1[j], a2[j], tg) for j in (0, k - 1)
+                for tg in (EMPTY, 0)]
+        idx = rng.integers(0, 2**32, (8, nnz), dtype=np.uint64)
+        idx[0, 0] = wrap[0]
+        idx[3, [2, 5, 9, 11]] = wrap
+        counts = np.array([1, 0, 5, 13, -2, 40, 16, 7], np.int32)
+        for b in (0, 8, 32):
+            got = _minhash2u_hoisted(idx, counts, a1, a2, s, b, variant)
+            want = minhash2u_pallas(
+                jnp.asarray(idx.astype(np.uint32).view(np.int32)),
+                jnp.asarray(counts[:, None]), jnp.asarray(a1.astype(np.uint32)),
+                jnp.asarray(a2.astype(np.uint32)), s=s, b=b, blk_n=8,
+                blk_t=nnz, blk_k=k, variant=variant, interpret=True)
+            np.testing.assert_array_equal(got, np.asarray(want).astype(np.uint64))
+            assert got[1].tolist() == [EMPTY & ((1 << b) - 1 if 0 < b < 32
+                                                else EMPTY)] * k
 
 
 # ---------------------------------------------------------------------------
