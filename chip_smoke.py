@@ -19,12 +19,16 @@ banded ``.idx`` -> ``IndexSearcher`` exact and LSH flushes -> a 4-shard
 ``ShardedIndex``, holding the ``packed_match`` kernel against its plain
 version (the corpus, odd shapes, every code width that divides 32) and
 every search against the same searcher scoring through the
-plain version.  Phase 6 serves the published Wide & Deep (40 fields x
-1,000,000 rows x d = 32, MLP 1024-512-256, minhash frontend k = 64, b = 8)
-through ``serve_scores``, holding ``sigbag`` and ``minhash2u`` at the
-frontend's shapes against their plain versions and the served scores
-against the same model scoring through the plain versions, and runs the
-``repro_torch.launch.serve --arch wide-deep --no-smoke`` entry point.
+plain version.  Phase 2 also holds ``sigbag`` on an edge set on both
+sides of its dispatch rule (staged slot tables and direct gather).  Phase
+6 serves the published Wide & Deep (40 fields x 1,000,000 rows x d = 32,
+MLP 1024-512-256, minhash frontend k = 64, b = 8) through
+``serve_scores`` in its two serving cells, ``serve_p99`` (512 rows a
+request) and ``serve_bulk`` (262,144), holding ``sigbag`` and
+``minhash2u`` at the frontend's shapes against their plain versions and
+the served scores against the same model scoring through the plain
+versions, and runs the ``repro_torch.launch.serve --arch wide-deep
+--no-smoke`` entry point.
 Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
@@ -124,6 +128,32 @@ EDGE2_B = (0, 8, 32)
 # OPH edge chunk (phase 2): every nnz % 4, and rows longer than one round
 # of 16-byte loads (4,096 indices at 256 threads)
 OPH_EDGE_NNZ = (125, 126, 127, 128, 20_003)
+# sigbag edge set (phase 2), (n, k, 2^b, d, dtype, token offset): n
+# "bulk" is SMs x the staged block's rows less half a block (design A
+# where the shape allows it, the last block partial), "below" one block
+# short of a block per SM (B), other n go to the direct gather (B); k not
+# a multiple of the 8-slot token stage (1, 33, 36, 500), 2^b in {16, 256,
+# 1024}, d in {1, 8, 31, 32, 33, 64, 128}; offset 1 misaligns the tokens
+# (A's 4-byte token copies, B's scalar token loads).  Tokens -1, 2^b and
+# 2^31 - 1 are sprinkled in, one row is all out of range.
+SIGBAG_EDGES = (
+    ("bulk", 1, 256, 32, "float32", 0), ("bulk", 33, 256, 32, "float32", 0),
+    ("bulk", 64, 256, 32, "float32", 0), ("bulk", 500, 256, 32, "float32", 0),
+    ("bulk", 64, 256, 32, "float32", 1), ("bulk", 36, 16, 8, "float32", 0),
+    ("bulk", 33, 256, 64, "float32", 0), ("bulk", 64, 16, 32, "bfloat16", 0),
+    ("bulk", 64, 256, 32, "bfloat16", 0), ("bulk", 33, 1024, 32, "bfloat16", 0),
+    ("bulk", 64, 256, 8, "bfloat16", 1),
+    ("bulk", 64, 1024, 32, "float32", 0), ("bulk", 64, 256, 128, "float32", 0),
+    ("bulk", 64, 256, 1, "float32", 0), ("bulk", 33, 256, 31, "bfloat16", 0),
+    ("below", 64, 256, 32, "float32", 0), ("below", 64, 256, 32, "bfloat16", 0),
+    (512, 64, 256, 32, "float32", 0), (512, 64, 256, 32, "bfloat16", 0),
+    (512, 64, 256, 32, "float32", 1), (512, 64, 256, 32, "bfloat16", 1),
+    (1, 1, 16, 1, "float32", 0), (3, 500, 256, 1, "bfloat16", 0),
+    (257, 33, 16, 8, "float32", 0), (257, 33, 16, 8, "bfloat16", 0),
+    (130, 65, 1024, 31, "float32", 0), (130, 65, 256, 33, "bfloat16", 0),
+    (130, 128, 256, 33, "float32", 1), (130, 500, 256, 64, "bfloat16", 0),
+    (1_000, 64, 256, 128, "float32", 0), (1_000, 64, 256, 128, "bfloat16", 0),
+)
 # phase 2 times these over a CUDA graph of KERNEL_LOOP launches: one
 # launch is too short to rank on by one pair of events
 LOOP_TIMED = ("oph2u", "oph4u", "minhash2u")
@@ -139,10 +169,11 @@ RAW_SHARDS, SIG_CHUNK, N_SHARDS = 16, 50_000, 4
 FLUSH_REPS = {"exact": 5, "lsh": 2}   # timed flushes after the checked one
 BLOCK_LOOP = 20        # back-to-back block launches per timed sample
 
-# Recsys serving (phase 6): wide-deep CONFIG, serve_p99 (batch 512) and
-# serve_bulk (262,144 rows) for sigbag.
+# Recsys serving (phase 6): wide-deep CONFIG, cells serve_p99 (batch 512)
+# and serve_bulk (262,144 rows).
 N_REQUESTS, WARMUP_REQUESTS, CLI_REQUESTS = 128, 3, 16
 BULK_ROWS = 262_144
+BULK_REQUESTS = 3      # serve_bulk requests after one warm-up
 SIGBAG_LOOP = 20       # back-to-back 512-row launches per timed sample
 
 KERNEL_INFO = {
@@ -257,6 +288,20 @@ def oph_bytes(nonzeros: int, n: int, k: int, four_u: bool) -> float:
 def match_bytes(nq: int, nc: int, words: int, sentinel: bool) -> float:
     """Query and corpus words read once, the count outputs written once."""
     return 4 * (nq + nc) * words + 4 * nq * nc * (2 if sentinel else 1)
+
+
+def sigbag_bound(torch, tok, table) -> tuple:
+    """``bound`` of one sigbag call: tokens read once, each table row these
+    tokens touch read once (at 512 uniform rows ~221 of each slot's 256),
+    the output written once; one float32 add per (row, slot, column).
+    Returns (ms, "bytes" or "operations", rows touched)."""
+    n, k = tok.shape
+    two_b, d = table.shape[1], table.shape[2]
+    flat = tok.to(torch.int64) + torch.arange(k, device=tok.device) * two_b
+    rows_read = int(torch.unique(flat).numel())
+    nbytes = (4 * n * k + rows_read * d * table.element_size()
+              + n * d * table.element_size())
+    return bound(nbytes, n * k * d) + (rows_read,)
 
 
 def check_minhash4u_edges(torch, dev) -> int:
@@ -437,6 +482,63 @@ def check_oph_edges(torch, dev) -> int:
                                 f"{code_b}): kernel != plain version "
                                 f"(max |err| {err})")
                         cases += 1
+    return cases
+
+
+def check_sigbag_edges(torch, dev) -> dict:
+    """``sigbag`` bit-exact (``torch.equal``) against its plain version on
+    SIGBAG_EDGES, float32 and bfloat16 tables, on both sides of the
+    dispatch rule: the design the built kernel picks (``sigbag_plan``)
+    must be the one ``staged_plan`` predicts, and each design must run in
+    both types.  Returns {(design, dtype): cases}; raises on any
+    difference."""
+    import numpy as np
+
+    from repro_torch.kernels import sigbag as ksig
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rng = np.random.default_rng(SEED + 37)
+    cases = {}
+    for n, k, two_b, d, dtype, off in SIGBAG_EDGES:
+        tdt = dtypes[dtype]
+        esize = torch.tensor([], dtype=tdt).element_size()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if n in ("bulk", "below"):
+            rows = ksig.staged_plan(2**31 - 1, two_b, d, esize, 1).rows or 1024
+            n = (sms * rows - rows // 2 + 3 if n == "bulk"
+                 else (sms - 1) * rows)
+        tok = rng.integers(0, two_b, n * k + off, dtype=np.int64)
+        odd = rng.random(tok.shape) < 0.03
+        tok[odd] = rng.choice([-1, two_b, 2**31 - 1], int(odd.sum()))
+        tok = torch.from_numpy(tok.astype(np.int32)).to(dev)
+        tok = tok[off:].view(n, k)
+        tok[min(2, n - 1)] = -1
+        table = torch.from_numpy(rng.standard_normal((k, two_b, d),
+                                                     np.float32)).to(dev)
+        table[0, 0] = -0.0
+        table = table.to(tdt)
+        plan, card_sms = ksig.sigbag_plan_cuda(tok, table)
+        want_plan = ksig.staged_plan(n, two_b, d, esize, sms,
+                                     table.data_ptr())
+        if plan != want_plan or card_sms != sms:
+            raise AssertionError(f"sigbag n={n} k={k} 2^b={two_b} d={d} "
+                                 f"{dtype}: the kernel plans {plan} on "
+                                 f"{card_sms} SMs, staged_plan {want_plan}")
+        got = ksig.sigbag_cuda(tok, table)
+        want = ksig.sigbag_plain(tok, table)
+        if not torch.equal(got, want):
+            bad = int((got.float() != want.float()).sum())
+            raise AssertionError(
+                f"sigbag edge n={n} k={k} 2^b={two_b} d={d} {dtype} token "
+                f"offset {off} ({'staged' if plan.staged else 'direct'}): "
+                f"kernel != plain version in {bad} elements")
+        key = ("staged" if plan.staged else "direct", dtype)
+        cases[key] = cases.get(key, 0) + 1
+    for design in ("staged", "direct"):
+        for dtype in dtypes:
+            if not cases.get((design, dtype)):
+                raise AssertionError(f"sigbag edge set: no {dtype} case took "
+                                     f"the {design} design")
     return cases
 
 
@@ -655,6 +757,13 @@ def run(torch) -> int:
     log(f"[kernel] oph2u / oph4u edge chunk: nnz in {OPH_EDGE_NNZ}, aligned "
         f"and unaligned base, counts 0 to nnz, < 0 and > nnz, bin_bits in "
         f"(0, 9), code_b in (0, {B}): bit-exact in all {n_edge} cases")
+    sig_edges = check_sigbag_edges(torch, dev)
+    log(f"[kernel] sigbag edge set: k in (1, 33, 36, 64, 65, 128, 500), 2^b "
+        f"in (16, 256, 1024), d in (1, 8, 31, 32, 33, 64, 128), rows not a "
+        f"multiple of a block, tokens -1, 2^b, 2^31 - 1 and misaligned: "
+        f"bit-exact in all {sum(sig_edges.values())} cases ("
+        + ", ".join(f"{d} {t} {c}" for (d, t), c in sorted(sig_edges.items()))
+        + ")")
     log(f"kernels checked: {', '.join(sorted(rows))}")
 
     # -- phase 3: the main path, online learning -------------------------
@@ -1048,13 +1157,14 @@ def retrieval(torch, dev, n_docs: int) -> dict:
 
 
 def recsys_serving(torch, dev) -> tuple:
-    """Phase 6: the published Wide & Deep served on the card; returns the
-    ``sigbag`` row of the kernels line and the ``minhash2u`` launches of
-    the served path."""
+    """Phase 6: the published Wide & Deep served on the card, cells
+    ``serve_p99`` and ``serve_bulk``; returns the ``sigbag`` row of the
+    kernels line and the ``minhash2u`` launches of the served paths."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import minhash as kmin
-    from repro_torch.kernels.sigbag import sigbag_cuda, sigbag_plain
+    from repro_torch.kernels.sigbag import (sigbag_cuda, sigbag_plain,
+                                            sigbag_plan_cuda)
     from repro_torch.launch import serve
     from repro_torch.launch.steps import build_cell, init_inputs
     from repro_torch.models.recsys import RecsysModel
@@ -1104,6 +1214,9 @@ def recsys_serving(torch, dev) -> tuple:
         table = tables[dtype]
         tok = torch.randint(0, two_b, (n, k), dtype=torch.int32,
                             generator=gen, device=dev)
+        plan, _ = sigbag_plan_cuda(tok, table)
+        if plan.staged != (n == BULK_ROWS):
+            raise AssertionError(f"sigbag {dtype} n={n} plans {plan}")
         got = kern(tok, table)
         want = sigbag_plain(tok, table)
         if not torch.equal(got, want):
@@ -1130,18 +1243,18 @@ def recsys_serving(torch, dev) -> tuple:
             ms = median_ms(lambda: kern(tok, table), torch)
             lib_ms = median_ms(lambda: F.embedding_bag(flat, weight,
                                                        mode="sum"), torch)
-            how = f"median of {REPS}, CUDA events"
+            # one launch by events also holds the host's launch time; a
+            # graph of SIGBAG_LOOP launches gives the device's alone
+            dev_ms = graph_ms(lambda: kern(tok, table), torch, SIGBAG_LOOP)
+            how = (f"median of {REPS}, CUDA events around one launch; "
+                   f"{dev_ms:.4f} ms a launch in a CUDA graph of "
+                   f"{SIGBAG_LOOP}")
         plain_ms = cuda_ms(lambda: sigbag_plain(tok, table), torch)
-        # tokens read once, each table row this run's tokens touch read
-        # once (at 512 uniform rows ~221 of each slot's 256), output
-        # written once; one float32 add per (row, slot, column) at the
-        # lane-instruction rate
-        rows_read = int(torch.unique(flat).numel())
-        nbytes = 4 * n * k + rows_read * d * table.element_size() \
-            + n * d * table.element_size()
-        b_ms, b_by = bound(nbytes, n * k * d)
-        log(f"[kernel] sigbag {dtype} n={n} k={k} 2^b={two_b} d={d}: "
-            f"{ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}; "
+        b_ms, b_by, rows_read = sigbag_bound(torch, tok, table)
+        design = (f"staged, {plan.rows} rows a block, {plan.stages} stages"
+                  if plan.staged else "direct gather")
+        log(f"[kernel] sigbag {dtype} n={n} k={k} 2^b={two_b} d={d} "
+            f"({design}): {ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}; "
             f"{rows_read} of {k * two_b} table rows touched), plain "
             f"{plain_ms:.2f} ms (1 call), F.embedding_bag {lib_ms:.4f} ms "
             f"(timed alike); bit-exact")
@@ -1231,6 +1344,58 @@ def recsys_serving(torch, dev) -> tuple:
     log(f"[serve wide-deep] {n_req} scores through the kernels == through "
         f"the plain versions, bit for bit")
 
+    # -- serve_bulk: the same model, 262,144 rows a request ----------------
+    bprog = build_cell("wide-deep", "serve_bulk", smoke=False, device=dev)
+    n_bulk = bprog.input_specs["set_ids"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bprog.step(model, init_inputs(bprog, gen))               # warm-up
+    torch.cuda.synchronize()
+    bulk = [init_inputs(bprog, gen) for _ in range(BULK_REQUESTS)]
+    kern.launches = mh.launches = 0
+    blat = []
+    for batch in bulk:
+        t0 = time.perf_counter()
+        scores = bprog.step(model, batch)
+        torch.cuda.synchronize()
+        blat.append((time.perf_counter() - t0) * 1e3)
+    bulk_launches = {"minhash2u": mh.launches, "sigbag": kern.launches}
+    for name, count in bulk_launches.items():
+        if count != BULK_REQUESTS:
+            raise AssertionError(f"{BULK_REQUESTS} serve_bulk requests "
+                                 f"launched {name} {count} times, want one "
+                                 "per request")
+    if scores.shape != (n_bulk,) or not bool(
+            ((scores > 0) & (scores < 1)).all()):
+        raise AssertionError(f"serve_bulk scores {tuple(scores.shape)} not "
+                             "in (0, 1)")
+    b0 = bulk[0]
+    sig = model.signatures(b0["set_ids"], b0["set_counts"])
+    plan, _ = sigbag_plan_cuda(sig, model.minhash_table)
+    if not plan.staged:
+        raise AssertionError(f"serve_bulk's sigbag plans {plan}, not the "
+                             "staged design")
+    step_ms = statistics.median(cuda_ms(lambda: bprog.step(model, b_), torch)
+                                for b_ in bulk)
+    front_ms = statistics.median(cuda_ms(
+        lambda: model.signature_bag(model.signatures(b_["set_ids"],
+                                                     b_["set_counts"])),
+        torch) for b_ in bulk)
+    bag_ms = statistics.median(cuda_ms(lambda: model.signature_bag(sig),
+                                       torch) for _ in range(REPS))
+    want = bprog.step(plain_model, b0)
+    if not torch.equal(bprog.step(model, b0), want):
+        raise AssertionError("serve_bulk scores: kernels != plain versions")
+    log(f"[serve wide-deep serve_bulk] {BULK_REQUESTS} requests x batch "
+        f"{n_bulk}: {', '.join(f'{x:.1f}' for x in blat)} ms (host clock to "
+        f"a synchronize), {n_bulk * BULK_REQUESTS / (sum(blat) / 1e3):.0f} "
+        f"rows/s; launches per request: 1 minhash2u + 1 sigbag (staged, "
+        f"{plan.rows} rows a block)")
+    log(f"[serve wide-deep serve_bulk] device time of a request (CUDA "
+        f"events, median of {BULK_REQUESTS}) {step_ms:.3f} ms, of it the "
+        f"frontend {front_ms:.3f} ms ({front_ms / step_ms:.1%}; sigbag "
+        f"{bag_ms:.4f} ms); {n_bulk} scores through the kernels == through "
+        f"the plain versions, bit for bit")
+
     # -- a small model on the CPU (plain versions) and on the card ----------
     sprog = build_cell("wide-deep", "serve_p99", smoke=True, device="cpu")
     smodel = sprog.init_params(torch.Generator().manual_seed(SEED))
@@ -1248,7 +1413,7 @@ def recsys_serving(torch, dev) -> tuple:
         f"for bit, scores within rtol 1e-5 / atol 1e-6)")
 
     # -- the launcher ---------------------------------------------------------
-    del model, plain_model, batches
+    del model, plain_model, batches, bulk, sig, want, scores
     torch.cuda.empty_cache()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1261,9 +1426,9 @@ def recsys_serving(torch, dev) -> tuple:
     log(f"[serve CLI] python -m repro_torch.launch.serve --arch wide-deep "
         f"--no-smoke --requests {CLI_REQUESTS}: {line}")
     log(f"[recsys] {time.perf_counter() - t_phase:.1f} s; launches on the "
-        f"served path {launches}")
-    row["launches"] = launches["sigbag"]
-    return row, launches["minhash2u"]
+        f"served paths: serve_p99 {launches}, serve_bulk {bulk_launches}")
+    row["launches"] = launches["sigbag"] + bulk_launches["sigbag"]
+    return row, launches["minhash2u"] + bulk_launches["minhash2u"]
 
 
 if __name__ == "__main__":

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's OPH, minhash and packed-match CUDA kernels
-between two checkouts, on one GPU.
+"""A/B timing of the port's OPH, minhash, packed-match and signature
+embedding-bag CUDA kernels between two checkouts, on one GPU.
 
 Run from the root of a checkout, with a second checkout (for example the
 parent commit, ``git archive HEAD~1 | tar -x -C build/parent``) at DIR:
 
     python3 kernel_ab.py --parent build/parent [--out build/ab]
 
-It builds ``src/repro_torch/csrc/oph.cu``, ``minhash.cu`` and
-``hamming.cu`` of both checkouts (their C interfaces must match) and
-calls each through THIS checkout's wrappers, swapping the loaded
-library, in turns parent, change, change, parent, at the main paths'
-shapes:
+It builds ``src/repro_torch/csrc/oph.cu``, ``minhash.cu``,
+``hamming.cu`` and ``sigbag.cu`` of both checkouts (their C interfaces
+must match) and calls each through THIS checkout's wrappers, swapping
+the loaded library, in turns parent, change, change, parent, at the main
+paths' shapes:
 
   * ``oph2u`` and ``oph4u`` (k = 512, s = 24, raw values), ``minhash4u``
     and ``minhash2u``, one 10,000-row chunk at the paper's
@@ -22,12 +22,19 @@ shapes:
     rows x 128 nonzeros, k = 64 (a CUDA graph of 20 launches);
   * ``packed_match``, k = 512, b = 8: one 256-query x 4,096-doc
     exact-flush block (a CUDA graph of 20 launches, and eager launches
-    back to back) and 256 queries x 677,399 docs in one launch.
+    back to back) and 256 queries x 677,399 docs in one launch;
+  * ``sigbag`` at the Wide & Deep frontend's shapes (64 slots, 2^b =
+    256, d = 32): a ``serve_p99`` request of 512 rows, float32 and
+    bfloat16 tables (a CUDA graph of 20 launches), and ``serve_bulk``'s
+    262,144 rows, float32 by CUDA events around one launch (median of 7;
+    the window holds the host's launch time too) and both types by a
+    CUDA graph of 20 launches; and the frontend as served, ``minhash2u``
+    (512 rows x 128 nonzeros, k = 64) into ``sigbag`` (a graph of 20).
 
 Every output of the change is held bit-exact against the parent's, and
 the change against the plain versions on ``chip_smoke.py``'s edge chunks
-(``minhash4u``, ``minhash2u``, ``oph2u`` / ``oph4u``) and packed-match odd
-shapes.  To compare another design, pass its checkout as ``--parent``
+(``minhash4u``, ``minhash2u``, ``oph2u`` / ``oph4u``), packed-match odd
+shapes and ``sigbag`` edge set.  To compare another design, pass its checkout as ``--parent``
 (one call can run the script more than once).  It prints each kernel's
 registers and spills (``nvcc -Xptxas -v``), writes both checkouts' SASS
 to ``OUT/<tree>-<source>.sass`` and prints each kernel's SASS opcode
@@ -50,12 +57,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402  (timing helpers, bounds, constants)
 
-SOURCES = ("oph", "minhash", "hamming")
+SOURCES = ("oph", "minhash", "hamming", "sigbag")
+# sigbag.cu's instantiations at the serving cells' shapes (d = 32): the
+# ptxas and SASS summaries print these and leave out the other ~30
+SIGBAG_SHOWN = ("sigbag_stagedI3F32Li8E", "sigbag_stagedI4BF16Li4E",
+                "sigbag_directI3F32Li8ELi16E", "sigbag_directI4BF16Li4ELi16E")
+
+
+def shown(fn: str) -> bool:
+    return "sigbag" not in fn or any(x in fn for x in SIGBAG_SHOWN)
 
 
 def build_tree(root: Path, out: Path, tag: str, nvcc: str, flags) -> dict:
     """nvcc every source of ``root``'s csrc into ``out``, all at once;
-    returns {source: loaded ctypes library}, and prints ptxas's report."""
+    returns {source: loaded ctypes library}, and prints ptxas's report of
+    the kernels ``shown`` picks."""
     from repro_torch.kernels import build
     csrc = root / "src" / "repro_torch" / "csrc"
     procs, fn = {}, "?"
@@ -75,13 +91,15 @@ def build_tree(root: Path, out: Path, tag: str, nvcc: str, flags) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line) and shown(fn):
                 print(f"[ptxas {tag} {name}] {fn}: {line.split('info    :')[-1].strip()}")
         libs[name] = build.load(name, so)
         sass = subprocess.run(["cuobjdump", "-sass", str(so)],
                               capture_output=True, text=True).stdout
         (out / f"{tag}-{name}.sass").write_text(sass)
         for fn, ops in opcode_counts(sass).items():
+            if not shown(fn):
+                continue
             top = ", ".join(f"{o} {n}" for o, n in ops.most_common(24))
             print(f"[sass {tag}] {fn}: {sum(ops.values())} instructions: {top}")
     return libs
@@ -120,6 +138,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import hamming as kham
     from repro_torch.kernels import oph as koph
     from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels import sigbag as ksig
     from repro_torch.train.online import make_family
 
     args.out.mkdir(parents=True, exist_ok=True)
@@ -165,6 +184,12 @@ def main(argv=None) -> int:
     del codes
     q = corpus[:cs.N_QUERIES].clone()
     blk = corpus[:cs.BLOCK]
+    sgen = torch.Generator(device=dev).manual_seed(cs.SEED + 53)
+    sig_f32 = torch.randn(64, 256, 32, generator=sgen, device=dev) * 0.01
+    sig_tables = {"float32": sig_f32, "bfloat16": sig_f32.to(torch.bfloat16)}
+    sig_tok = {n: torch.randint(0, 256, (n, 64), dtype=torch.int32,
+                                generator=sgen, device=dev)
+               for n in (512, cs.BULK_ROWS)}
 
     oph_bound = {four_u: cs.bound(
         cs.oph_bytes(total_nnz, n, cs.K_OPH, four_u),
@@ -212,6 +237,21 @@ def main(argv=None) -> int:
                      cs.match_ops(cs.N_QUERIES, n_docs, cs.K_IDX, cs.B,
                                   False))),
     }
+    for label, dtype, n, how in (
+            ("512x64 float32", "float32", 512, "graph"),
+            ("512x64 bfloat16", "bfloat16", 512, "graph"),
+            ("262144x64 float32", "float32", cs.BULK_ROWS, "events"),
+            ("262144x64 float32 by graph", "float32", cs.BULK_ROWS, "graph"),
+            ("262144x64 bfloat16 by graph", "bfloat16", cs.BULK_ROWS, "graph")):
+        tok, table = sig_tok[n], sig_tables[dtype]
+        cases[f"sigbag {label}"] = (
+            lambda tok=tok, table=table: ksig.sigbag_cuda(tok, table), how,
+            cs.sigbag_bound(torch, tok, table)[:2])
+    # the recsys frontend as served: minhash2u's codes into sigbag
+    cases["frontend minhash2u + sigbag 512 float32"] = (
+        lambda: ksig.sigbag_cuda(
+            kmin.minhash2u_cuda(rid, rcnt, f2r.a1, f2r.a2, s=cs.S, b=cs.B),
+            sig_tables["float32"]), "graph", None)
 
     # one launch by CUDA events beside each graph-timed chunk kernel
     for name in ("oph2u k=512", "oph4u k=512", "minhash2u k=500"):
@@ -234,10 +274,12 @@ def main(argv=None) -> int:
     n_edge2 = cs.check_minhash2u_edges(torch, dev)
     n_oph = cs.check_oph_edges(torch, dev)
     n_odd = cs.check_match_odd_shapes(torch, dev)
+    n_sig = sum(cs.check_sigbag_edges(torch, dev).values())
     print(f"[ab] change == plain versions: minhash4u edge chunk ({n_edge} "
           f"cases), minhash2u edge chunk ({n_edge2} cases), oph2u / oph4u "
           f"edge chunk ({n_oph} cases), packed_match odd shapes ({n_odd} "
-          f"cases)", flush=True)
+          f"cases), sigbag edge set ({n_sig} cases, both designs)",
+          flush=True)
 
     # -- timings, in turns ----------------------------------------------------------
     times = collections.defaultdict(list)

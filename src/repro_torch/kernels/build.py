@@ -56,6 +56,7 @@ SIGNATURES = {
     },
     "sigbag": {
         "sigbag_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "sigbag_plan": [_P, _I, _I, _I, _I, _P],
     },
 }
 
@@ -120,8 +121,11 @@ def load(name: str, path) -> ctypes.CDLL:
     another's with the same C interface) and declare its C entries."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        entry = getattr(lib, fn, None)
+        if entry is None:          # an older checkout's library lacks it
+            continue
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
     return lib
 
 

@@ -19,9 +19,19 @@ all-zero one-hot row does (``sigbag_ref`` gives NaN there).
     counts its launches in ``sigbag_cuda.launches``.
   * ``sigbag(tokens, table)`` -- the plain version for CPU tensors, the
     kernel for CUDA tensors.
+
+The kernel has two designs (see the header of ``csrc/sigbag.cu``): (A)
+slot tables staged in shared memory, for bulk batches, and (B) a direct
+gather, for request batches and every shape (A) cannot hold.
+``staged_plan`` is the rule that picks one, the twin of the kernel's
+``make_plan``; ``direct_layout`` gives (B)'s lanes.  ``sigbag_plan_cuda``
+asks the built kernel (its ``sigbag_plan``) which design a call takes.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -29,6 +39,73 @@ from repro_torch.device import same_device
 from repro_torch.kernels import build
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/sigbag.cu's constants
+A_WARPS = 8             # consumer warps of a staged block (+ 2 producers)
+A_ROWS_MAX = 1024       # rows of a staged block
+A_ACC = 128             # float32 sums a consumer thread
+A_TCH = 8               # slots a token stage
+A_SPS = 2               # slots a consumer step
+A_PPT = 2               # 16-byte pieces a consumer thread
+A_SMEM_MAX = 232_448    # opt-in shared memory a block (227 KB)
+A_BARRIER_BYTES = 256
+A_MAX_STAGES = 8
+B_SLOTS = 64            # slot loads in flight a lane
+
+
+@dataclasses.dataclass(frozen=True)
+class SigbagPlan:
+    """The design of one call: ``staged`` (A) with ``rows`` a block,
+    ``stages`` slot stages of ``stage_bytes`` and ``tpr`` 16-byte pieces a
+    table row, or direct (B) with the other fields 0."""
+
+    staged: bool
+    rows: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+    tpr: int = 0
+
+
+def staged_rows(tpr: int, esize: int) -> int:
+    """Rows of a staged block: a thread takes A_PPT of a row's tpr 16-byte
+    pieces (1 where tpr = 1), so A_WARPS warps take 32 / (tpr / A_PPT)
+    rows each a step, for as many steps as A_ACC float32 sums a thread and
+    A_ROWS_MAX allow."""
+    ppt = A_PPT if tpr > 1 else 1
+    step = A_WARPS * (32 // (tpr // ppt))
+    return step * min(A_ACC // (ppt * 16 // esize), A_ROWS_MAX // step)
+
+
+def staged_plan(n: int, two_b: int, d: int, esize: int, sms: int,
+                table_ptr: int = 0) -> SigbagPlan:
+    """The dispatch rule of ``sigbag_launch``: design (A) when a table row
+    is 16 * tpr bytes (tpr a power of two <= 32), the table (at address
+    ``table_ptr``) 16-byte aligned, two slot slices (2^b rows and a zero
+    row, 128-byte rounded) fit beside the two token stages, and
+    ceil(n / rows) >= sms; else (B)."""
+    rowb = d * esize
+    tpr = rowb // 16
+    if (rowb % 16 or not 1 <= tpr <= 32 or tpr & (tpr - 1)
+            or table_ptr % 16):
+        return SigbagPlan(False)
+    rows = staged_rows(tpr, esize)
+    stage_bytes = -(-(two_b * rowb + rowb) // 128) * 128
+    stages = ((A_SMEM_MAX - A_BARRIER_BYTES - 2 * rows * A_TCH * 4)
+              // stage_bytes)
+    if stages < 2 or -(-n // rows) < sms:
+        return SigbagPlan(False)
+    return SigbagPlan(True, rows, min(stages, A_MAX_STAGES), stage_bytes, tpr)
+
+
+def direct_layout(d: int, esize: int, table_ptr: int = 0):
+    """Design (B)'s (V, L): V = 2 columns a lane where d is even and the
+    table (at ``table_ptr``) aligned to 2 * esize bytes, else 1; L lanes
+    a row, the power of two >= ceil(d / V), at most 32."""
+    v = 2 if d % 2 == 0 and table_ptr % (2 * esize) == 0 else 1
+    lanes = 1
+    while lanes < min(-(-d // v), 32):
+        lanes *= 2
+    return v, lanes
 
 
 def _check_shapes(name: str, tokens: torch.Tensor, table: torch.Tensor):
@@ -88,6 +165,26 @@ def sigbag_cuda(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 sigbag_cuda.launches = 0
+
+
+def sigbag_plan_cuda(tokens: torch.Tensor, table: torch.Tensor):
+    """The design ``sigbag_cuda(tokens, table)`` takes, as the built
+    kernel's ``sigbag_plan`` decides it: (``SigbagPlan``, SM count)."""
+    _check_shapes("sigbag", tokens, table)
+    dev = same_device(tokens, table)
+    if dev.type != "cuda":
+        raise ValueError(f"sigbag: the CUDA kernel needs CUDA tensors, got "
+                         f"{dev}")
+    n = tokens.shape[0]
+    two_b, d = table.shape[1], table.shape[2]
+    info = (ctypes.c_int * 6)()
+    with torch.cuda.device(dev):
+        status = build.library("sigbag").sigbag_plan(
+            table.data_ptr(), n, two_b, d,
+            int(table.dtype == torch.bfloat16), info)
+    build.check(status, "sigbag_plan")
+    staged, rows, stages, stage_bytes, tpr, sms = info
+    return SigbagPlan(bool(staged), rows, stages, stage_bytes, tpr), sms
 
 
 def sigbag(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

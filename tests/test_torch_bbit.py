@@ -4,12 +4,25 @@
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import bbit as jb
 from repro.kernels import pack as jp
 from repro_torch.core import bbit as tb
 from repro_torch.kernels import pack as tp
 from repro_torch.core.u32 import from_numpy, to_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 RNG = np.random.default_rng(21)
 

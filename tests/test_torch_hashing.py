@@ -10,6 +10,18 @@ from repro.core import hashing as jh
 from repro_torch.core import hashing as th
 from repro_torch.core.u32 import M32, from_numpy, narrow, to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 P = 2**31 - 1
 RNG = np.random.default_rng(20)
 # indices: the extremes, then random ids over [0, 2^31)

@@ -11,6 +11,18 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""

@@ -29,12 +29,25 @@ against their plain versions there).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.hashing import hash4u_apply
 from repro.core.bbit import pack_codes as j_pack_codes
 from repro.kernels.minhash import minhash2u_pallas
 from repro_torch.core.u32 import from_numpy
 from repro_torch.kernels import hamming as kham
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 P = 2**31 - 1
 M32 = np.uint64(0xFFFFFFFF)

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.hashing import Hash2U, Hash4U
 from repro.data.sparse import from_lists as j_from_lists
@@ -22,6 +23,18 @@ from repro_torch.core.u32 import from_numpy, to_numpy
 from repro_torch.data.sparse import from_lists
 from repro_torch.kernels import batch_signatures
 from repro_torch.kernels import minhash as kmin
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 S, NNZ = 16, 256
 

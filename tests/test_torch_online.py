@@ -41,6 +41,18 @@ from repro_torch.train.online import OnlineTrainer as TTrainer
 from repro_torch.train.online import SignatureCache as TCache
 from repro_torch.train.online import make_family
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, B, S = 128, 8, 16
 RTOL, ATOL = 1e-4, 1e-6
 

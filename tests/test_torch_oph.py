@@ -24,6 +24,18 @@ from repro_torch.data.sparse import from_lists
 from repro_torch.kernels import batch_signatures
 from repro_torch.kernels import oph as koph
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S, NNZ = 16, 256
 
 

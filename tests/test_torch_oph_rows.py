@@ -15,10 +15,23 @@ against its plain version there, on an edge chunk of the same cases).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.hashing import hash2u_apply, hash4u_apply
 from repro.kernels.oph import oph2u_pallas, oph4u_pallas
 from repro_torch.kernels.oph import OPH_THREADS
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 P = 2**31 - 1
 U = np.uint64

@@ -14,6 +14,18 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.data.synthetic import TINY, generate_sets
 from repro_torch.train.online import SignatureCache, make_family
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, B, S = 64, 8, 16
 
 

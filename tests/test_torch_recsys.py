@@ -31,6 +31,18 @@ from repro_torch.launch import serve
 from repro_torch.launch.steps import build_cell, init_inputs
 from repro_torch.models import recsys as t_recsys
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B = 32          # SMOKE_RECSYS["batch"]
 
 

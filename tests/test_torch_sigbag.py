@@ -21,6 +21,18 @@ from repro.kernels import sigbag as j_sigbag
 from repro_torch.kernels.ref import sigbag_plain
 from repro_torch.kernels.sigbag import sigbag, sigbag_cuda
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and this module's torch work would otherwise take every core from the
+    timing-sensitive tests running beside it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (n, k, b, d): the reference test's shapes and the recsys frontend's
 SHAPES = [(10, 16, 4, 8), (130, 32, 6, 32), (64, 500, 8, 1), (130, 64, 8, 32)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
