@@ -169,6 +169,15 @@ RAW_SHARDS, SIG_CHUNK, N_SHARDS = 16, 50_000, 4
 FLUSH_REPS = {"exact": 5, "lsh": 2}   # timed flushes after the checked one
 BLOCK_LOOP = 20        # back-to-back block launches per timed sample
 
+# Search serving (phase 7): phase 5's corpus and shards behind
+# SearchServer; open-loop Zipf traffic (alpha 1.1, seed 1, Poisson
+# arrivals) at about 60% of what phase 5's direct exact flush reached
+SERVE_REQUESTS, SERVE_QPS, SERVE_MAX_BATCH, SERVE_DELAY_S = 2048, 4000.0, 256, 0.005
+STREAM_WINDOW = 64 << 20      # device window of the streamed scan, bytes
+LSH_QUERIES, LSH_SUB = 64, 32  # held-out queries, lsh_batch
+APPEND_REQUESTS, APPEND_QPS = 2048, 2000.0   # over the grown corpus
+SOCKET_LSH_QUERIES = 8
+
 # Recsys serving (phase 6): wide-deep CONFIG, cells serve_p99 (batch 512)
 # and serve_bulk (262,144 rows).
 N_REQUESTS, WARMUP_REQUESTS, CLI_REQUESTS = 128, 3, 16
@@ -879,11 +888,14 @@ def run(torch) -> int:
         row["launches"] = path_counts[name] + batch_counts[name]
 
     # -- phase 5: retrieval ----------------------------------------------
-    rows["packed_match"] = retrieval(torch, dev, N_DOCS)
+    rows["packed_match"], served = retrieval(torch, dev, N_DOCS)
 
     # -- phase 6: recsys serving -----------------------------------------
     rows["sigbag"], minhash_launches = recsys_serving(torch, dev)
     rows["minhash2u"]["launches"] += minhash_launches
+
+    # -- phase 7: the search server over phase 5's corpus -----------------
+    rows["packed_match"]["launches"] += search_serving(torch, dev, served)
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1149,11 +1161,18 @@ def retrieval(torch, dev, n_docs: int) -> dict:
     total = sum(n for n, _ in launches.values())
     log(f"[retrieval] {time.perf_counter() - t_phase:.1f} s; packed_match "
         f"launches on the main path {total} ({launches})")
-    return dict(name="packed_match", route="cuda",
-                source=KERNEL_INFO["packed_match"][0],
-                replaces=KERNEL_INFO["packed_match"][1], launches=total,
-                max_abs_err=max(err, err_s), ms=ms_blk, plain_ms=plain_blk,
-                bound_ms=b_blk, bound_by=by_blk, library_ms=None)
+    row = dict(name="packed_match", route="cuda",
+               source=KERNEL_INFO["packed_match"][0],
+               replaces=KERNEL_INFO["packed_match"][1], launches=total,
+               max_abs_err=max(err, err_s), ms=ms_blk, plain_ms=plain_blk,
+               bound_ms=b_blk, bound_by=by_blk, library_ms=None)
+    # what phase 7 serves: this corpus, its shards, and these answers
+    ctx = dict(index=index, router=router, cfg=cfg,
+               shard_dir=str(SMOKE_DIR / "rcv1_shards"),
+               sig_paths=sig_paths["rotation"],
+               exact_rows=np.stack(exact_rows), ids_exact=ids_exact,
+               sc_exact=sc_exact, held=to_numpy(held_sig.data))
+    return row, ctx
 
 
 def recsys_serving(torch, dev) -> tuple:
@@ -1429,6 +1448,347 @@ def recsys_serving(torch, dev) -> tuple:
         f"served paths: serve_p99 {launches}, serve_bulk {bulk_launches}")
     row["launches"] = launches["sigbag"] + bulk_launches["sigbag"]
     return row, launches["minhash2u"] + bulk_launches["minhash2u"]
+
+
+def open_loop(server, rows, arrivals, at_third=None):
+    """Submit ``rows`` at their arrival offsets (seconds) to a started
+    server; ``at_third`` runs in a thread once a third are submitted.
+    Returns (handles, results, wall seconds)."""
+    import threading
+
+    side = None
+    with server:
+        t0 = time.monotonic()
+        handles = []
+        for i, (r, at) in enumerate(zip(rows, arrivals)):
+            lag = at - (time.monotonic() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            handles.append(server.submit(r))
+            if at_third is not None and i == len(rows) // 3:
+                side = threading.Thread(target=at_third)
+                side.start()
+        results = [h.result(timeout=300.0) for h in handles]
+        elapsed = time.monotonic() - t0
+        if side is not None:
+            side.join(timeout=300.0)
+            if side.is_alive():
+                raise AssertionError("the side task never finished")
+    return handles, results, elapsed
+
+
+def search_serving(torch, dev, ctx) -> int:
+    """Phase 7: ``SearchServer`` over phase 5's 4 shards (1 and 2 dispatch
+    workers, each on its own stream), the streamed exact scan, LSH
+    sub-batches, a live append with a spill under traffic, the socket
+    transport behind the resilience wrappers, and the port's ``/metrics``
+    and trace; returns the ``packed_match`` launches of the served paths."""
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.index import (IndexSearcher, build_sharded,
+                                   load_sharded)
+    from repro_torch.index.builder import read_manifest
+    from repro_torch.index.resilience import (ResiliencePolicy,
+                                              resilient_client_factory)
+    from repro_torch.index.transport import ShardService, SocketShardClient
+    from repro_torch.kernels import hamming as kham
+    from repro_torch.launch import serve
+    from repro_torch.launch.server import SearchServer, ZipfianTraffic
+    from repro_torch.obs import get_registry, get_tracer, start_http_exporter
+    from repro_torch.roofline.hardware import HBM_BW
+
+    kern = kham.packed_match_cuda
+    t_phase = time.perf_counter()
+    router, index = ctx["router"], ctx["index"]
+    n_docs = router.n
+    bounds = list(router.offsets) + [n_docs]
+
+    def doc_row(i: int):
+        s = int(np.searchsorted(bounds, i, side="right")) - 1
+        return np.asarray(router.searchers[s].index.words_host[i - bounds[s]])
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a.indices, b.indices)
+                and np.array_equal(a.scores, b.scores))
+
+    per_flush = sum(-(-s.index.n // BLOCK) for s in router.searchers)
+    launches = {}
+    reg = get_registry()
+
+    # -- 1: the server equals direct search, 1 and 2 workers -------------
+    traffic = ZipfianTraffic(n_docs, alpha=1.1, seed=1)
+    ids = traffic.ids(SERVE_REQUESTS)
+    arrivals = traffic.arrival_offsets(SERVE_REQUESTS, SERVE_QPS)
+    rows = np.stack([doc_row(int(i)) for i in ids])
+    direct = router.search(rows, TOPK)
+    servers = []
+    for workers in (1, 2):
+        srv = SearchServer(router, max_batch=SERVE_MAX_BATCH,
+                           max_delay_s=SERVE_DELAY_S, topk=TOPK,
+                           num_workers=workers)
+        kern.launches = 0
+        handles, results, elapsed = open_loop(srv, rows, arrivals)
+        n_launch = kern.launches
+        snap = srv.stats.snapshot()
+        got_i = np.concatenate([r.indices for r in results])
+        got_s = np.concatenate([r.scores for r in results])
+        if not (np.array_equal(got_i, direct.indices)
+                and np.array_equal(got_s, direct.scores)):
+            raise AssertionError(f"server ({workers} workers) != direct "
+                                 "router.search on the same rows")
+        hit = float(np.mean(got_i[:, 0] == ids))
+        if hit != 1.0:
+            raise AssertionError(f"served self-hit@1 {hit} != 1.0")
+        if snap["errors"] or snap["requests"] != SERVE_REQUESTS:
+            raise AssertionError(f"server ({workers} workers): {snap}")
+        if n_launch != snap["batches"] * per_flush:
+            raise AssertionError(
+                f"server ({workers} workers) launched packed_match "
+                f"{n_launch} times, {snap['batches']} flushes x "
+                f"{per_flush} imply {snap['batches'] * per_flush}")
+        launches[f"serve w{workers}"] = n_launch
+        gauges = reg.values()
+        pred = gauges["serve_roofline_predicted_seconds"]
+        if abs(pred - gauges["serve_roofline_predicted_bytes"] / HBM_BW) \
+                > 1e-12 * max(pred, 1.0) or HBM_BW != 3.35e12:
+            raise AssertionError("the roofline gauge does not read the "
+                                 "H100's 3.35e12 B/s")
+        occ = ", ".join(f"{o:.3f}" for o in snap["worker_occupancy"])
+        log(f"[serve exact] {workers} worker(s), 4 shards, "
+            f"{SERVE_REQUESTS} Zipf requests offered at {SERVE_QPS:.0f} "
+            f"q/s: achieved {SERVE_REQUESTS / elapsed:.0f} q/s in "
+            f"{snap['batches']} flushes (mean batch {snap['mean_batch']:.1f}"
+            f"); latency p50 {snap['latency_p50_ms']:.1f} ms p99 "
+            f"{snap['latency_p99_ms']:.1f} ms, queue-wait p50 "
+            f"{snap['queue_wait_p50_ms']:.1f} ms, flush p50 "
+            f"{snap['flush_p50_ms']:.1f} ms; worker occupancy [{occ}]; "
+            f"roofline gap {gauges['serve_roofline_gap']:.1f} "
+            f"({gauges['serve_roofline_achieved_gbps']:.1f} GB/s against "
+            f"{HBM_BW / 1e9:.0f}); triggers full {snap['flush_full']} aged "
+            f"{snap['flush_aged']}; packed_match launches {n_launch} == "
+            f"{snap['batches']} x {per_flush}; ids and scores == "
+            f"router.search, self-hit@1 {hit:.2f}")
+        servers.append(srv)
+
+    # -- 2: the streamed scan equals the in-core scan ---------------------
+    q = ctx["exact_rows"]
+    streamed = IndexSearcher(index, device=dev, corpus_block=BLOCK,
+                             max_device_bytes=STREAM_WINDOW)
+    incore = IndexSearcher(index, device=dev, corpus_block=BLOCK)
+    plan = streamed.stream_plan()
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kern.launches = 0
+    res = streamed.search(q, TOPK)
+    n_launch = kern.launches
+    peak = torch.cuda.max_memory_allocated()
+    stats = streamed.last_window_stats
+    if not (np.array_equal(res.indices, ctx["ids_exact"])
+            and np.array_equal(res.scores, ctx["sc_exact"])):
+        raise AssertionError("streamed exact scan != in-core exact scan")
+    if not 1 <= stats.high_water <= plan.inflight or stats.alive:
+        raise AssertionError(f"streamed scan held {stats.high_water} "
+                             f"windows, plan allows {plan.inflight}")
+    want = -(-n_docs // plan.block)
+    if n_launch != want:
+        raise AssertionError(f"streamed flush launched {n_launch}, want "
+                             f"{want}")
+    launches["streamed"] = n_launch
+
+    def flush_ms(searcher) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searcher.search(q, TOPK)
+        return (time.perf_counter() - t0) * 1e3
+    t_stream = sorted(flush_ms(streamed) for _ in range(3))[1]
+    t_incore = sorted(flush_ms(incore) for _ in range(3))[1]
+    stats = streamed.last_window_stats
+    log(f"[serve streamed] {N_QUERIES} queries through a "
+        f"{STREAM_WINDOW >> 20} MiB window over the {index.meta.payload_bytes}"
+        f" B payload: {stats.windows} windows of {plan.window} rows "
+        f"(block {plan.block}, prefetch {plan.prefetch}), high-water "
+        f"{stats.high_water} <= inflight {plan.inflight}; flush {t_stream:.1f}"
+        f" ms against in-core {t_incore:.1f} ms (medians of 3); H2D "
+        f"{stats.bytes / max(stats.h2d_ms, 1e-9) / 1e6:.2f} GB/s (copy-stream events, "
+        f"{stats.h2d_ms:.1f} ms for {stats.bytes} B); allocator peak "
+        f"{peak / 2**20:.1f} MiB, {(peak - held_before) / 2**20:.1f} MiB "
+        f"above the {held_before / 2**20:.1f} MiB held before; ids and "
+        f"scores == in-core, packed_match launches {n_launch}")
+
+    # -- 3: LSH sub-batches equal one batch -------------------------------
+    held = ctx["held"][:LSH_QUERIES]
+    one = incore.search(held, TOPK, mode="lsh")
+    subbed = IndexSearcher(index, device=dev, corpus_block=BLOCK,
+                           lsh_batch=LSH_SUB)
+    kern.launches = 0
+    t0 = time.perf_counter()
+    sub = subbed.search(held, TOPK, mode="lsh")
+    t_sub = time.perf_counter() - t0
+    n_launch = kern.launches
+    if not (same(sub, one)
+            and np.array_equal(sub.n_candidates, one.n_candidates)):
+        raise AssertionError(f"lsh_batch={LSH_SUB} != one batch")
+    if n_launch != -(-LSH_QUERIES // LSH_SUB):
+        raise AssertionError(f"lsh_batch flush launched {n_launch}")
+    launches["lsh sub-batches"] = n_launch
+    log(f"[serve lsh] {LSH_QUERIES} held-out queries in sub-batches of "
+        f"{LSH_SUB}: {t_sub * 1e3:.1f} ms, {n_launch} launches; ids, scores "
+        f"and candidate counts == one batch")
+
+    # -- 4: live append with a spill, under traffic -----------------------
+    grow = str(SMOKE_DIR / "rcv1_grow")
+    sig = ctx["sig_paths"]
+    t0 = time.perf_counter()
+    build_sharded(sig[:-1], grow, ctx["cfg"], n_shards=N_SHARDS, device=dev)
+    grow_build_s = time.perf_counter() - t0
+    man = read_manifest(grow)
+    last_n = man["n"] - man["offsets"][-1]
+    g_router = load_sharded(grow, device=dev, corpus_block=BLOCK,
+                            max_shard_docs=last_n)
+    n_old = g_router.n
+    # traffic over the corpus as it will be: a query of a document still to
+    # come is answered differently before and after the append
+    traffic = ZipfianTraffic(n_docs, alpha=1.1, seed=2)
+    a_ids = traffic.ids(APPEND_REQUESTS)
+    a_arr = traffic.arrival_offsets(APPEND_REQUESTS, APPEND_QPS)
+    a_rows = np.stack([doc_row(int(i)) for i in a_ids])
+    pre = g_router.search(a_rows, TOPK)
+    post = router.search(a_rows, TOPK)       # the whole corpus, same ids
+    appended = {}
+
+    def do_append():
+        t = time.perf_counter()
+        appended["touched"] = g_router.append([sig[-1]])
+        appended["s"] = time.perf_counter() - t
+
+    tracer = get_tracer()
+    tracer.reset(enabled=True)
+    srv = SearchServer(g_router, max_batch=SERVE_MAX_BATCH,
+                       max_delay_s=SERVE_DELAY_S, topk=TOPK, num_workers=2)
+    kern.launches = 0
+    handles, results, elapsed = open_loop(srv, a_rows, a_arr,
+                                          at_third=do_append)
+    n_launch = kern.launches
+    trace_path = str(SMOKE_DIR / "serve_trace.json")
+    n_events = tracer.export(trace_path)
+    spans = sum(1 for e in tracer.events() if e["name"] == "worker_flush")
+    tracer.reset(enabled=False)
+    n_diff = n_pre = n_post = 0
+    for j, r in enumerate(results):
+        a = (np.array_equal(r.indices[0], pre.indices[j])
+             and np.array_equal(r.scores[0], pre.scores[j]))
+        b = (np.array_equal(r.indices[0], post.indices[j])
+             and np.array_equal(r.scores[0], post.scores[j]))
+        if not (a or b):
+            raise AssertionError(f"request {j} during the append matches "
+                                 "neither corpus: a torn read")
+        if a != b:                      # the two corpora answer it apart
+            n_diff += 1
+            n_pre += a
+            n_post += b
+    if (g_router.generation, srv.generation, g_router.n_shards,
+            g_router.n) != (1, 1, N_SHARDS + 1, n_docs):
+        raise AssertionError(f"after the append: generation "
+                             f"{g_router.generation}, {g_router.n_shards} "
+                             f"shards, {g_router.n} docs")
+    if srv.stats.errors or srv.stats.requests != APPEND_REQUESTS:
+        raise AssertionError(f"served during the append: {srv.stats}")
+    fresh = load_sharded(grow, device=dev, corpus_block=BLOCK)
+    a, b = g_router.search(q, TOPK), fresh.search(q, TOPK)
+    if not same(a, b):
+        raise AssertionError("appended router != a fresh load_sharded")
+    if not (np.array_equal(a.indices, ctx["ids_exact"])
+            and np.array_equal(a.scores, ctx["sc_exact"])):
+        raise AssertionError("appended router != phase 5's single index")
+    if spans < 1:
+        raise AssertionError("the trace holds no worker_flush span")
+    launches["append"] = n_launch
+    snap = srv.stats.snapshot()
+    log(f"[serve append] 4 shards of {len(sig) - 1} .sig files (build "
+        f"{grow_build_s:.1f} s, {n_old} docs); {APPEND_REQUESTS} requests "
+        f"at {APPEND_QPS:.0f} q/s over 2 workers while "
+        f"{os.path.basename(sig[-1])} was appended with max_shard_docs="
+        f"{last_n}: append wall {appended['s']:.2f} s, spilled into shard "
+        f"{g_router.n_shards - 1} "
+        f"({[os.path.basename(p) for p, _ in appended['touched']]}), "
+        f"generation {g_router.generation}; of the {n_diff} requests the "
+        f"two corpora answer apart, {n_pre} were served from the old, "
+        f"{n_post} from the new, none torn; latency "
+        f"p50 {snap['latency_p50_ms']:.1f} ms p99 "
+        f"{snap['latency_p99_ms']:.1f} ms; results == fresh load_sharded "
+        f"== phase 5's single index; trace {n_events} events, {spans} "
+        f"worker_flush spans")
+
+    # -- 5: socket transport with resilience == in-process ---------------
+    services = [ShardService(s) for s in router.searchers]
+    try:
+        addrs = iter([svc.address for svc in services])
+        fac = resilient_client_factory(
+            ResiliencePolicy(),
+            inner_factory=lambda s: SocketShardClient(next(addrs)))
+        sock = load_sharded(ctx["shard_dir"], device=dev, corpus_block=BLOCK,
+                            client_factory=fac)
+        local = router.search(q, TOPK)
+        t0 = time.perf_counter()
+        router.search(q, TOPK)
+        t_local = time.perf_counter() - t0
+        kern.launches = 0
+        t0 = time.perf_counter()
+        got = sock.search(q, TOPK)
+        t_sock = time.perf_counter() - t0
+        lsh_q = ctx["held"][:SOCKET_LSH_QUERIES]
+        got_lsh = sock.search(lsh_q, TOPK, mode="lsh")
+        n_launch = kern.launches
+    finally:
+        for svc in services:
+            svc.close()
+    if not (same(got, local)
+            and same(got_lsh, router.search(lsh_q, TOPK, mode="lsh"))):
+        raise AssertionError("socket + resilient router != in-process")
+    launches["socket"] = n_launch
+    log(f"[serve socket] {N_SHARDS} ShardServices on loopback behind "
+        f"SocketShardClient + ResilientShardClient: exact {N_QUERIES} "
+        f"queries in {t_sock * 1e3:.1f} ms (in process {t_local * 1e3:.1f}"
+        f" ms), LSH {SOCKET_LSH_QUERIES}; ids "
+        f"and scores == the in-process router; packed_match launches "
+        f"{n_launch}")
+
+    # -- 6: /metrics of this process -------------------------------------
+    with start_http_exporter(port=0) as exp:
+        with urllib.request.urlopen(exp.url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+    fams = {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ")}
+    need = {"serve_requests_total", "serve_latency_seconds",
+            "serve_worker_occupancy", "serve_roofline_gap",
+            "index_generation", "index_docs", "index_shards"}
+    if not need <= fams:
+        raise AssertionError(f"/metrics lacks {sorted(need - fams)}")
+    log(f"[serve metrics] /metrics on 127.0.0.1:{exp.port}: {len(fams)} "
+        f"families ({sum(f.startswith('serve_') for f in fams)} serve_*, "
+        f"{sum(f.startswith('index_') for f in fams)} index_*)")
+    del servers, srv
+
+    # -- the launcher at its defaults -------------------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--index", "--serve"])
+    lines = out.getvalue().strip().splitlines()
+    if not any(re.match(r"served 64 requests in \d+ micro-batches", ln)
+               for ln in lines):
+        raise AssertionError(f"serve --index --serve printed {lines}")
+    log(f"[serve CLI] python -m repro_torch.launch.serve --index --serve: "
+        + " | ".join(lines[1:]))
+
+    total = sum(launches.values())
+    log(f"[serving] {time.perf_counter() - t_phase:.1f} s; packed_match "
+        f"launches on the served paths {total} ({launches})")
+    if min(launches.values()) < 1:
+        raise AssertionError("a served path never launched packed_match")
+    return total
 
 
 if __name__ == "__main__":

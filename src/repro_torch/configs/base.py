@@ -85,8 +85,8 @@ def get_cell(arch_id: str, cell_name: str) -> ShapeCell:
         if c.name == cell_name:
             return c
     raise KeyError(f"{arch_id} has no ported cell {cell_name!r} (ported: "
-                   f"{[c.name for c in RECSYS_CELLS]}); ROADMAP.md queue 1 "
-                   "item 9 lists the rest")
+                   f"{[c.name for c in RECSYS_CELLS]}); ROADMAP.md queue 1, "
+                   "'Recsys, the rest', lists the rest")
 
 
 def get_config(arch_id: str, smoke: bool = False):

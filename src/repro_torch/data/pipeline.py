@@ -17,7 +17,10 @@ The prefetch (``prefetch_iter``) and retry (``read_with_retries``)
 machinery is shared with the signature-cache replay path in
 ``repro_torch.train.online``.  Chunks are built in the prefetch thread and
 copied to the loader's device there (pinned memory, ``non_blocking``), so
-the copy of chunk i+1 overlaps the hashing of chunk i.
+the copy of chunk i+1 overlaps the hashing of chunk i.  ``device_put_iter``
+is the out-of-core index scan's host -> device window pipeline: a ring of
+pinned staging buffers and a copy stream.  ``LoaderStats`` export through
+``repro_torch.obs`` (``loader_collector``).
 """
 
 from __future__ import annotations
@@ -104,6 +107,40 @@ class LoaderStats:
     straggler_retries: int = 0
     shard_reassignments: int = 0
     io_errors: int = 0
+
+
+# LoaderStats field -> (metric name, help); every field is monotone, so
+# they all export as counters through ``loader_collector``
+_LOADER_METRICS = {
+    "load_seconds": ("data_loader_seconds_total",
+                     "wall clock spent reading shards"),
+    "chunks": ("data_loader_chunks_total", "chunks yielded"),
+    "bytes_read": ("data_loader_bytes_read_total", "shard bytes read"),
+    "straggler_retries": ("data_loader_straggler_retries_total",
+                          "reads retried for exceeding the deadline"),
+    "shard_reassignments": ("data_loader_shard_reassignments_total",
+                            "slow reads kept after exhausted retries"),
+    "io_errors": ("data_loader_io_errors_total",
+                  "OSErrors absorbed by the retry loop"),
+}
+
+
+def loader_collector(role: str):
+    """Registry collector factory over one ``LoaderStats`` holder.
+
+    ``role`` labels which pipeline the stats belong to (``"load"`` = raw
+    shard reads, ``"replay"`` = cached signature-shard replay); several
+    live loaders with the same role sum into one process total.  Used as
+    ``get_registry().register_object(stats, loader_collector("load"))``.
+    """
+    from repro_torch.obs.metrics import Sample
+    labels = (("role", role),)
+
+    def collect(stats: LoaderStats):
+        for field, (name, help) in _LOADER_METRICS.items():
+            yield Sample(name, "counter", help, labels,
+                         float(getattr(stats, field)))
+    return collect
 
 
 # process-wide jitter source for I/O retry backoff (callers needing
@@ -209,6 +246,7 @@ def prefetch_iter(make_iter, prefetch: int):
             if item is sentinel:
                 break
             yield item
+            del item        # the consumer is done with it: drop it here too
         t.join()
         if err:
             raise err[0]
@@ -217,6 +255,159 @@ def prefetch_iter(make_iter, prefetch: int):
         # guarantees the producer no longer touches shared loader stats
         stop.set()
         t.join()
+
+
+@dataclasses.dataclass
+class WindowStats:
+    """Accounting of one ``device_put_iter`` pipeline.
+
+    ``alive`` counts windows the pipeline has put on the device and the
+    consumer has not yet handed back; ``high_water`` is its maximum over
+    the run -- the device-window budget check of the streamed scan.
+    ``h2d_ms`` sums the copies' device time (CUDA events on the copy
+    stream; 0 on the CPU).
+    """
+
+    alive: int = 0
+    high_water: int = 0
+    windows: int = 0
+    bytes: int = 0
+    h2d_ms: float = 0.0
+
+    def __post_init__(self):
+        self._lock = threading.Lock()
+
+    def acquire(self, nbytes: int) -> None:
+        with self._lock:
+            self.alive += 1
+            self.high_water = max(self.high_water, self.alive)
+            self.windows += 1
+            self.bytes += nbytes
+
+    def release(self, h2d_ms: float = 0.0) -> None:
+        with self._lock:
+            self.alive -= 1
+            self.h2d_ms += h2d_ms
+
+
+class PinnedRing:
+    """Pinned host staging buffers for host -> device copies, reused round
+    robin.
+
+    A ``non_blocking`` copy out of pageable memory (the mmap'd ``.idx``
+    payload) is not asynchronous, so every window is first copied on the
+    host into one of these page-locked buffers.  A slot is refilled only
+    after the event of the H2D copy that last read it has completed.
+    Two slots let the host fill one while the other's copy runs.  A ring
+    serves one pipeline at a time; callers that stream concurrently keep
+    one ring each.
+    """
+
+    SLOTS = 2
+
+    def __init__(self):
+        self._bufs: List[Optional[torch.Tensor]] = [None] * self.SLOTS
+        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._next = 0
+
+    def stage(self, arr: np.ndarray):
+        """Copy ``arr`` into the next free slot; returns (slot, pinned
+        tensor view).  uint32 arrays come back as int32 bit patterns."""
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        nbytes = arr.nbytes
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._bufs[i] = torch.empty(max(nbytes, 1),
+                                              dtype=torch.uint8,
+                                              pin_memory=True)
+        host = buf[:nbytes]
+        np.copyto(host.numpy().view(arr.dtype).reshape(arr.shape), arr)
+        dtype = (torch.int32 if arr.dtype == np.uint32
+                 else torch.from_numpy(np.empty(0, arr.dtype)).dtype)
+        return i, host.view(dtype).view(arr.shape)
+
+    def mark(self, slot: int, event: "torch.cuda.Event") -> None:
+        """The copy out of ``slot`` completes with ``event``."""
+        self._events[slot] = event
+
+
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        return torch.from_numpy(arr.view(np.int32).copy())
+    return torch.from_numpy(arr.copy())
+
+
+def device_put_iter(make_host_iter, prefetch: int = 2, *,
+                    device: DeviceLike = None,
+                    ring: Optional[PinnedRing] = None,
+                    stats: Optional[WindowStats] = None):
+    """Double-buffered host -> device upload pipeline.
+
+    ``make_host_iter()`` yields ``(key, ndarray)`` pairs; this yields
+    ``(key, tensor on device)`` in order, ``prefetch`` items ahead of the
+    consumer (``prefetch_iter``'s producer thread), so the H2D copy of
+    item i+1 overlaps the consumer's work on item i.  On the card:
+
+      * each array is staged through ``ring`` (``PinnedRing``: pinned
+        memory, reused only once its last copy is done) and copied with
+        ``non_blocking=True`` on a side copy stream, into a tensor that
+        the copy stream allocates;
+      * the consumer's current stream waits on the copy's event before
+        the item is handed over, and the tensor is recorded on that
+        stream (``record_stream``): the caching allocator would otherwise
+        hand its memory to the next window, on the copy stream, while the
+        consumer's kernels still read it.
+
+    The consumer drops its reference to item i before it asks for item
+    i+1; ``stats.alive`` counts the items between the producer's upload
+    and that hand-back (at most ``prefetch + 2``: one being consumed,
+    ``prefetch`` queued, one held by the producer while the queue is
+    full), ``stats.high_water`` its maximum.  On the CPU the items are
+    plain host tensors.
+    """
+    dev = resolve_device(device)
+    stats = stats if stats is not None else WindowStats()
+    if dev.type != "cuda":
+        def produce_host():
+            for key, arr in make_host_iter():
+                stats.acquire(arr.nbytes)
+                yield key, _host_tensor(arr)
+
+        for key, win in prefetch_iter(produce_host, prefetch):
+            yield key, win
+            del win
+            stats.release()
+        return
+
+    ring = ring if ring is not None else PinnedRing()
+    copy_stream = torch.cuda.Stream(dev)
+
+    def produce():
+        for key, arr in make_host_iter():
+            slot, host = ring.stage(arr)
+            stats.acquire(arr.nbytes)
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(copy_stream):
+                win = torch.empty(host.shape, dtype=host.dtype, device=dev)
+                start.record(copy_stream)
+                win.copy_(host, non_blocking=True)
+                done.record(copy_stream)
+            ring.mark(slot, done)
+            yield key, win, start, done
+
+    for key, win, start, done in prefetch_iter(produce, prefetch):
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(done)
+        win.record_stream(consumer)
+        yield key, win
+        del win
+        done.synchronize()
+        stats.release(start.elapsed_time(done))
 
 
 class ChunkedLoader:
@@ -249,6 +440,8 @@ class ChunkedLoader:
         self.io_backoff_cap_s = io_backoff_cap_s
         self.lane_multiple = lane_multiple
         self.stats = LoaderStats()
+        from repro_torch.obs.metrics import get_registry
+        get_registry().register_object(self.stats, loader_collector("load"))
         # examples per shard index, recorded as shards are read; lets a
         # consumer resume mid-stream (``resume_point`` + ``iter_from``)
         self.shard_examples: dict = {}

@@ -5,12 +5,19 @@
   builder.py -- ``build_index``: ``.sig`` shards -> one mmap-able ``.idx``
                 (byte-identical to the reference's); ``load_index`` ->
                 ``SigIndex`` with the packed corpus on the device;
-                ``build_sharded`` -> S contiguous-range shards + manifest.
+                ``build_sharded`` -> S contiguous-range shards + manifest;
+                ``append_index`` / ``merge_band_tables``: live growth.
   query.py   -- ``IndexSearcher``: exact top-k (blocked scan with a
-                running top-k) and LSH candidates + kernel rerank, with
-                batched admission (``submit`` / ``flush``).
-  router.py  -- ``ShardedIndex``: sequential fan-out over shard searchers
-                and ``merge_topk``, bit-identical to a single index.
+                running top-k, in-core or streamed in ``StreamPlan``
+                windows) and LSH candidates + kernel rerank (in
+                ``lsh_batch`` sub-batches), with batched admission
+                (``submit`` / ``flush``).
+  router.py  -- ``ShardedIndex``: sequential fan-out over shard clients
+                and ``merge_topk``, bit-identical to a single index; live
+                ``append`` / ``refresh``, partial results.
+  transport.py  -- ``ShardService`` / ``SocketShardClient``: the ``bSHr``
+                   loopback-TCP shard transport.
+  resilience.py -- deadlines, retries, hedging, breakers, chaos.
 
 The scoring hot path is ``repro_torch.kernels.hamming.packed_match``
 (``csrc/hamming.cu`` on the card).
@@ -19,19 +26,22 @@ The scoring hot path is ``repro_torch.kernels.hamming.packed_match``
 from repro_torch.index.banding import (BandingConfig, band_keys_from_codes,
                                        band_keys_packed, choose_band_config,
                                        s_curve)
-from repro_torch.index.builder import (IndexMeta, SigIndex, build_band_tables,
-                                       build_index, build_sharded, load_index,
-                                       read_index_meta)
-from repro_torch.index.query import (IndexSearcher, SearchResult,
+from repro_torch.index.builder import (IndexMeta, SigIndex, append_index,
+                                       build_band_tables, build_index,
+                                       build_sharded, load_index,
+                                       merge_band_tables, read_index_meta,
+                                       sharded_lock)
+from repro_torch.index.query import (IndexSearcher, SearchResult, StreamPlan,
                                      resemblance_scores)
 from repro_torch.index.router import (LocalShardClient, ShardClient,
                                       ShardedIndex, load_sharded, merge_topk)
 
 __all__ = [
     "BandingConfig", "IndexMeta", "IndexSearcher", "LocalShardClient",
-    "SearchResult", "ShardClient", "ShardedIndex", "SigIndex",
-    "band_keys_from_codes", "band_keys_packed", "build_band_tables",
-    "build_index", "build_sharded", "choose_band_config", "load_index",
-    "load_sharded", "merge_topk", "read_index_meta", "resemblance_scores",
-    "s_curve",
+    "SearchResult", "ShardClient", "ShardedIndex", "SigIndex", "StreamPlan",
+    "append_index", "band_keys_from_codes", "band_keys_packed",
+    "build_band_tables", "build_index", "build_sharded",
+    "choose_band_config", "load_index", "load_sharded", "merge_band_tables",
+    "merge_topk", "read_index_meta", "resemblance_scores", "s_curve",
+    "sharded_lock",
 ]

@@ -34,7 +34,12 @@ Layout (little-endian; every section 64-byte aligned):
 ``load_index`` maps the file back (``SigIndex``); the packed payload
 uploads once to the index's device (``SigIndex.corpus``) for kernel
 scoring.  ``build_sharded`` splits a corpus into S contiguous-doc-range
-``.idx`` shards plus a ``manifest.json``.
+``.idx`` shards plus a ``manifest.json``.  ``append_index`` extends an
+``.idx`` with new documents without a rebuild (``merge_band_tables``),
+under the destination's lock file; ``sharded_lock`` is the writer lock of
+a sharded directory, and the manifest's ``generation`` counts its live
+appends.  Host numpy and file I/O throughout, except the new documents'
+band keys.
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ import dataclasses
 import json
 import os
 import struct
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import u32
+from repro_torch.data.lockfile import FileLock
 from repro_torch.data.sigshard import read_sig_meta, read_sig_shard
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index.banding import BandingConfig, band_keys_packed
@@ -157,11 +164,13 @@ def build_band_tables(keys: np.ndarray
 # ---------------------------------------------------------------------------
 
 def _read_sig_group(sig_paths: Sequence[str], cfg: BandingConfig,
-                    device: torch.device):
+                    device: torch.device,
+                    expect: Optional[IndexMeta] = None):
     """Read + validate a group of ``.sig`` shards (payloads stay mmap'd).
 
     Returns ``(shard_words, labels, band_keys, first_shard_meta)``; the
-    band keys of each shard are computed on ``device``.
+    band keys of each shard are computed on ``device``.  ``expect`` (an
+    ``IndexMeta``) pins the wire format when appending to an index.
     """
     if not sig_paths:
         raise ValueError("need at least one .sig shard")
@@ -179,6 +188,12 @@ def _read_sig_group(sig_paths: Sequence[str], cfg: BandingConfig,
                 raise ValueError(
                     f"banding over {cfg.code_bits}-bit values, shards "
                     f"carry {meta0.code_bits}-bit codes")
+            if expect is not None and \
+                    (sm.k, sm.b, sm.code_bits, sm.words, sm.sentinel) != \
+                    (expect.k, expect.b, expect.code_bits, expect.words,
+                     expect.sentinel):
+                raise ValueError(f"{path}: wire format {sm} != index "
+                                 f"{expect}")
         elif (sm.k, sm.b, sm.code_bits, sm.words, sm.sentinel) != \
                 (meta0.k, meta0.b, meta0.code_bits, meta0.words,
                  meta0.sentinel):
@@ -242,14 +257,16 @@ def _check_set_sizes(set_sizes, n: int) -> Optional[np.ndarray]:
 
 def build_index(sig_paths: Sequence[str], out_path: str, cfg: BandingConfig,
                 *, set_sizes: Optional[np.ndarray] = None, s: int = 0,
-                device: DeviceLike = None) -> IndexMeta:
+                atomic: bool = False, device: DeviceLike = None) -> IndexMeta:
     """Packed ``.sig`` shards -> one ``.idx`` file.
 
     Shard payloads stay memory-mapped and are streamed into the file as
     they are; band keys are computed shard by shard on ``device`` (the
     card unless ``device="cpu"``).  ``set_sizes`` (nonzeros per document,
     in shard order) and ``s`` (universe bits) let queries use the exact
-    Theorem-1 constants.
+    Theorem-1 constants.  ``atomic`` writes a same-directory temp file and
+    ``os.replace``s it over ``out_path`` when complete (how
+    ``ShardedIndex.append`` publishes a spilled shard under live readers).
     """
     dev = resolve_device(device)
     shard_words, labels, keys, meta0 = _read_sig_group(sig_paths, cfg, dev)
@@ -268,7 +285,120 @@ def build_index(sig_paths: Sequence[str], out_path: str, cfg: BandingConfig,
               "bucket_offsets": bucket_offsets, "postings": postings}
     if set_sizes is not None:
         arrays["set_sizes"] = set_sizes
+    dest = out_path
+    if atomic:
+        out_path = f"{dest}.tmp.{os.getpid()}"
     _write_index(out_path, meta, arrays, shard_words)
+    if atomic:
+        os.replace(out_path, dest)
+    return meta
+
+
+# ---------------------------------------------------------------------------
+# Incremental append
+# ---------------------------------------------------------------------------
+
+Tables = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def merge_band_tables(old: Tables, new: Tables, id_offset: int) -> Tables:
+    """Merge two band bucket tables; ``new``'s doc ids shift by
+    ``id_offset``.
+
+    Both operands are ``(band_offsets, keys, bucket_offsets, postings)``
+    as built by ``build_band_tables``.  Per band, the postings of both
+    sides are re-grouped by key with a *stable* sort, so old docs keep
+    their ascending order and precede the (larger-id) new docs inside
+    every bucket -- the merged table is bit-identical to one built from
+    scratch over the combined corpus, without touching the old payload
+    or re-deriving its band keys.
+    """
+    bo_o, k_o, off_o, p_o = old
+    bo_n, k_n, off_n, p_n = new
+    n_bands = len(bo_o) - 1
+    if len(bo_n) - 1 != n_bands:
+        raise ValueError(f"band count mismatch: {n_bands} != {len(bo_n) - 1}")
+    band_offsets = np.zeros(n_bands + 1, np.int64)
+    key_parts, size_parts, post_parts = [], [], []
+    for band in range(n_bands):
+        lo, hi = int(bo_o[band]), int(bo_o[band + 1])
+        ln, hn = int(bo_n[band]), int(bo_n[band + 1])
+        sizes_o = np.asarray(off_o[lo + 1:hi + 1]) - np.asarray(off_o[lo:hi])
+        sizes_n = np.asarray(off_n[ln + 1:hn + 1]) - np.asarray(off_n[ln:hn])
+        keys_rep = np.concatenate([np.repeat(k_o[lo:hi], sizes_o),
+                                   np.repeat(k_n[ln:hn], sizes_n)])
+        posts = np.concatenate([
+            np.asarray(p_o[off_o[lo]:off_o[hi]], np.int64),
+            np.asarray(p_n[off_n[ln]:off_n[hn]], np.int64) + id_offset])
+        order = np.argsort(keys_rep, kind="stable")
+        keys_m, sizes_m = np.unique(keys_rep, return_counts=True)
+        key_parts.append(keys_m.astype(np.int64))
+        size_parts.append(sizes_m.astype(np.int64))
+        post_parts.append(posts[order].astype(np.uint32))
+        band_offsets[band + 1] = band_offsets[band] + keys_m.size
+    keys = (np.concatenate(key_parts) if key_parts
+            else np.zeros(0, np.int64))
+    sizes = (np.concatenate(size_parts) if size_parts
+             else np.zeros(0, np.int64))
+    bucket_offsets = np.zeros(keys.size + 1, np.int64)
+    np.cumsum(sizes, out=bucket_offsets[1:])
+    return (band_offsets, keys, bucket_offsets,
+            np.concatenate(post_parts) if post_parts
+            else np.zeros(0, np.uint32))
+
+
+def append_index(idx_path: str, sig_paths: Sequence[str], *,
+                 set_sizes: Optional[np.ndarray] = None,
+                 out_path: Optional[str] = None,
+                 device: DeviceLike = None) -> IndexMeta:
+    """Extend an existing ``.idx`` with new documents -- no full rebuild.
+
+    Only the *new* shards' band keys are computed (on ``device``, the
+    card unless ``device="cpu"``); the bucket tables merge via
+    ``merge_band_tables`` and the old packed payload streams through
+    verbatim from the mmap.  New docs get ids ``[old_n, old_n + new_n)``;
+    the file is byte-identical to ``build_index`` over old + new shards.
+    Writes atomically (temp file + ``os.replace``) to ``out_path``
+    (default: in place), under the destination's lock file
+    (``<dest>.lock``) so two appenders cannot interleave; readers stay
+    lock-free -- an open mmap keeps the pre-append inode alive.
+    """
+    dest = out_path or idx_path
+    dev = resolve_device(device)
+    with FileLock(dest + ".lock"):
+        return _append_index_locked(idx_path, sig_paths,
+                                    set_sizes=set_sizes, dest=dest,
+                                    device=dev)
+
+
+def _append_index_locked(idx_path: str, sig_paths: Sequence[str], *,
+                         set_sizes: Optional[np.ndarray], dest: str,
+                         device: torch.device) -> IndexMeta:
+    old = load_index(idx_path, device=device)
+    om = old.meta
+    shard_words, new_labels, new_keys, _ = _read_sig_group(
+        sig_paths, om.banding, device, expect=om)
+    n_new = int(new_labels.shape[0])
+    set_sizes = _check_set_sizes(set_sizes, n_new)
+    if om.has_set_sizes and set_sizes is None:
+        raise ValueError("index stores set sizes; append needs set_sizes "
+                         "for the new documents")
+    if not om.has_set_sizes and set_sizes is not None:
+        raise ValueError("index has no set sizes; cannot add them on append")
+
+    band_offsets, keys, bucket_offsets, postings = merge_band_tables(
+        (old.band_offsets, old.keys, old.bucket_offsets, old.postings),
+        build_band_tables(new_keys), om.n)
+    meta = dataclasses.replace(om, n=om.n + n_new, n_keys=int(keys.size))
+    arrays = {"labels": np.concatenate([old.labels,
+                                        new_labels.astype(np.float32)]),
+              "band_offsets": band_offsets, "keys": keys,
+              "bucket_offsets": bucket_offsets, "postings": postings}
+    if om.has_set_sizes:
+        arrays["set_sizes"] = np.concatenate([old.set_sizes, set_sizes])
+    tmp = dest + ".tmp"
+    _write_index(tmp, meta, arrays, [old.words_host] + shard_words)
+    os.replace(tmp, dest)
     return meta
 
 
@@ -277,17 +407,30 @@ def build_index(sig_paths: Sequence[str], out_path: str, cfg: BandingConfig,
 # ---------------------------------------------------------------------------
 
 MANIFEST_NAME = "manifest.json"
+LOCK_NAME = ".lock"
+
+
+def sharded_lock(shard_dir: str, **kwargs) -> FileLock:
+    """The writer lock of a sharded-index directory -- taken by every
+    mutation (``ShardedIndex.append``); readers never take it (manifest
+    and shard replacements are atomic)."""
+    return FileLock(os.path.join(shard_dir, LOCK_NAME), **kwargs)
 
 
 def write_manifest(out_dir: str, paths: Sequence[str],
-                   counts: Sequence[int]) -> None:
+                   counts: Sequence[int], *, generation: int = 0) -> None:
     """Write the shard manifest (names, doc-id offsets, total n) that
-    ``repro_torch.index.router.load_sharded`` reads; atomic (temp file +
-    ``os.replace``).  ``generation`` counts live appends in the reference;
-    the port builds generation 0 only."""
+    ``repro_torch.index.router.load_sharded`` reads -- the one serializer,
+    shared by ``build_sharded`` and ``ShardedIndex.append``.
+
+    ``generation`` is a monotone mutation counter: every live append bumps
+    it, and readers (``ShardedIndex.refresh``) reload only when it moved.
+    The write is atomic (same-directory temp + ``os.replace``), so a
+    reader never parses a torn manifest.
+    """
     offsets = np.cumsum([0] + list(counts))
     manifest = {"version": 1,
-                "generation": 0,
+                "generation": int(generation),
                 "shards": [os.path.basename(p) for p in paths],
                 "offsets": [int(o) for o in offsets[:-1]],
                 "n": int(offsets[-1])}
@@ -299,13 +442,14 @@ def write_manifest(out_dir: str, paths: Sequence[str],
 
 
 def read_manifest(shard_dir: str) -> dict:
-    """Read + validate ``manifest.json``."""
+    """Read + validate ``manifest.json`` (``generation`` defaults to 0)."""
     man_path = os.path.join(shard_dir, MANIFEST_NAME)
     with open(man_path) as f:
         manifest = json.load(f)
     if manifest.get("version") != 1:
         raise ValueError(f"{man_path}: unsupported manifest version "
                          f"{manifest.get('version')}")
+    manifest.setdefault("generation", 0)
     return manifest
 
 
@@ -382,6 +526,9 @@ def read_index_meta(path: str) -> IndexMeta:
                      n_keys=n_keys, s=s)
 
 
+_UPLOAD_LOCK = threading.Lock()
+
+
 @dataclasses.dataclass
 class SigIndex:
     """A loaded ``.idx``: mmap'd bucket tables + packed corpus payload.
@@ -416,9 +563,18 @@ class SigIndex:
 
     @property
     def corpus(self) -> torch.Tensor:
-        """Device-resident packed signature matrix (uploaded once)."""
+        """Device-resident packed signature matrix (uploaded once).
+
+        Dispatch threads reach the first use together: the upload runs
+        once, under a lock, and is a blocking copy (PyTorch synchronizes
+        the uploading stream before it returns), so the published tensor
+        is complete for every stream that reads it.
+        """
         if self._corpus is None:
-            self._corpus = u32.from_numpy(self.words_host, self.device)
+            with _UPLOAD_LOCK:
+                if self._corpus is None:
+                    self._corpus = u32.from_numpy(self.words_host,
+                                                  self.device)
         return self._corpus
 
     def candidates(self, query_keys: np.ndarray) -> np.ndarray:

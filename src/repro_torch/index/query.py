@@ -10,11 +10,20 @@ estimator rerank:
     debiases the counts into resemblance estimates (Theorem 1) and merges
     them into a running top-k.  The launches are queued on the stream;
     only the harvest waits for them.
+
+    Corpora larger than the device window (``max_device_bytes``) never
+    become device-resident: windows of the mmap'd ``.idx`` payload stream
+    through ``repro_torch.data.pipeline.device_put_iter`` (pinned staging
+    ring, a copy stream), the H2D copy of window i+1 overlapping the scan
+    of window i, sized by ``StreamPlan``; the running top-k threads across
+    windows, so the result is bit-identical to the in-core scan.
   * ``mode="lsh"`` -- candidates from the banded bucket tables (one
     batched ``np.searchsorted`` per band, ``SigIndex.candidates_batch``),
     then one kernel launch over the batch's candidate union (padded to a
     power of two >= 128) with non-candidates masked out, then the same
-    rerank.
+    rerank.  With ``lsh_batch`` set a flush is split into sub-batches,
+    each dispatched before any is harvested: host candidate work for
+    sub-batch i+1 overlaps the device rerank of sub-batch i.
 
 Top-k order is the reference's ``lax.top_k`` rule: descending score,
 ties toward the earlier position (the lower doc id).  ``torch.topk``
@@ -22,12 +31,17 @@ promises no order among ties, so every top-k here is a stable descending
 ``torch.sort``.
 
 ``submit`` queues single queries and ``flush`` runs them as one batch --
-the entry point of ``repro_torch.launch.serve --index``.
+the entry point of ``repro_torch.launch.serve --index``.  One searcher
+serves several dispatch threads at once (``repro_torch.launch.server``),
+each on its own CUDA stream: state built lazily (the corpus upload, the
+set sizes) is built once under a lock, and shared device tensors are
+recorded on every stream that reads them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -35,12 +49,14 @@ import torch
 
 from repro_torch.core import u32
 from repro_torch.core.estimator import bbit_constants
+from repro_torch.data.pipeline import PinnedRing, WindowStats, device_put_iter
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index.banding import band_keys_packed
 from repro_torch.index.builder import SigIndex
 from repro_torch.kernels.engine import PackedSignatures
 from repro_torch.kernels.hamming import packed_match
 from repro_torch.kernels.pack import PackSpec
+from repro_torch.obs.trace import get_tracer
 
 Queries = Union[PackedSignatures, torch.Tensor, np.ndarray]
 
@@ -70,14 +86,54 @@ def resemblance_scores(matches: torch.Tensor,
     return (p - c1) * (1.0 / (1.0 - c1))
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Sizing of the out-of-core exact scan, honoring the device budget.
+
+    ``inflight`` windows can be device-resident at once: the one being
+    scanned, up to ``prefetch`` queued in the H2D pipeline, and one held
+    by the producer thread while the queue is full -- so
+    ``inflight * window_bytes <= max_device_bytes`` whenever the budget
+    admits at least one corpus row per window (the hard floor).
+    """
+
+    window: int        # rows per streamed window (multiple of block)
+    block: int         # scan block height (<= the searcher's corpus_block)
+    prefetch: int      # H2D pipeline depth actually used
+    row_bytes: int
+
+    @property
+    def inflight(self) -> int:
+        return self.prefetch + 2
+
+    @property
+    def window_bytes(self) -> int:
+        return self.window * self.row_bytes
+
+    @property
+    def resident_bytes(self) -> int:
+        """Worst-case device bytes held by streamed corpus windows."""
+        return self.inflight * self.window_bytes
+
+
 @dataclasses.dataclass
 class SearchResult:
     """Top-k per query: global doc ids (-1 past the candidate count) and
-    their resemblance estimates (-inf where the id is -1)."""
+    their resemblance estimates (-inf where the id is -1).
+
+    ``coverage`` / ``failed_shards`` carry the router's degraded-mode
+    accounting (``on_shard_failure="partial"``): the fraction of corpus
+    docs searched and the shard indices that failed.
+    """
 
     indices: np.ndarray          # (Q, topk) int64
     scores: np.ndarray           # (Q, topk) float32
     n_candidates: Optional[np.ndarray] = None    # (Q,) for the LSH path
+    coverage: float = 1.0        # docs searched / docs total
+    failed_shards: Tuple[int, ...] = ()
+
+    def __len__(self) -> int:
+        return self.indices.shape[0]
 
 
 def query_words(queries: Queries, spec: PackSpec,
@@ -120,6 +176,17 @@ def topk_merge(best_s, best_i, sc, ids):
     cat_i = torch.cat([best_i, ids.expand(sc.shape[0], -1)], dim=1)
     new_s, sel = topk_desc(cat_s, best_s.shape[1])
     return new_s, torch.gather(cat_i, 1, sel)
+
+
+def on_stream(t: torch.Tensor) -> torch.Tensor:
+    """Record a device tensor that several streams share on the calling
+    thread's current stream, so the caching allocator never hands its
+    memory to another stream's allocation while work queued here still
+    reads it (a corpus uploaded by one dispatch worker and freed by a
+    refresh on another)."""
+    if t.is_cuda:
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return t
 
 
 def pad_result(best_i: torch.Tensor, best_s: torch.Tensor, q: int, topk: int,
@@ -177,10 +244,14 @@ class BatchedAdmission:
                 raise ValueError("either every submitted query carries a "
                                  "query_size or none does")
             qsizes = np.asarray(sizes, np.uint32)
-        res = self.search(batch, topk, mode=mode, query_sizes=qsizes)
+        with get_tracer().span("search_dispatch",
+                               args={"mode": mode, "batch": len(tickets)}):
+            res = self.search(batch, topk, mode=mode, query_sizes=qsizes)
         return {t: SearchResult(res.indices[i:i + 1], res.scores[i:i + 1],
                                 None if res.n_candidates is None
-                                else res.n_candidates[i:i + 1])
+                                else res.n_candidates[i:i + 1],
+                                coverage=res.coverage,
+                                failed_shards=res.failed_shards)
                 for i, t in enumerate(tickets)}
 
 
@@ -189,13 +260,22 @@ class IndexSearcher(BatchedAdmission):
     unless ``device="cpu"``; it must be the index's).  ``corpus_block`` is
     the exact scan's block height.
 
+    ``max_device_bytes`` is the device window of the exact path: a packed
+    corpus larger than it is never uploaded whole -- windows stream off
+    the mmap'd payload (``StreamPlan``, ``stream_prefetch`` windows
+    ahead).  ``lsh_batch`` splits an LSH flush into sub-batches that are
+    all dispatched before any is harvested.
+
     Match counts come from ``match_counts``, the packed-match dispatcher;
     a subclass may score through another function of the same contract
     (``chip_smoke.py`` scores one through the plain version on the card).
     """
 
     def __init__(self, index: SigIndex, *, device: DeviceLike = None,
-                 corpus_block: int = 4096):
+                 corpus_block: int = 4096,
+                 max_device_bytes: Optional[int] = None,
+                 stream_prefetch: int = 2,
+                 lsh_batch: Optional[int] = None):
         self.device = resolve_device(device)
         if self.device.type != index.device.type:
             raise ValueError(f"index lives on {index.device}, searcher on "
@@ -203,14 +283,35 @@ class IndexSearcher(BatchedAdmission):
                              f"'{self.device.type}'")
         if corpus_block < 1:
             raise ValueError(f"corpus_block must be >= 1, got {corpus_block}")
+        if max_device_bytes is not None and max_device_bytes < 1:
+            raise ValueError(f"max_device_bytes must be >= 1, got "
+                             f"{max_device_bytes}")
+        if stream_prefetch < 0:
+            raise ValueError(f"stream_prefetch must be >= 0, got "
+                             f"{stream_prefetch}")
+        if lsh_batch is not None and lsh_batch < 1:
+            raise ValueError(f"lsh_batch must be >= 1, got {lsh_batch}")
         self.index = index
         self.corpus_block = min(corpus_block, max(index.n, 1))
+        self.max_device_bytes = max_device_bytes
+        self.stream_prefetch = stream_prefetch
+        self.lsh_batch = lsh_batch
+        self._lock = threading.Lock()     # lazily built shared state
         self._doc_sizes = None
+        self._rings: List[PinnedRing] = []   # idle pinned staging rings
+        self.last_window_stats: Optional[WindowStats] = None
         self._admission_init()
 
     @property
     def spec(self) -> PackSpec:
         return self.index.spec
+
+    @property
+    def streamed(self) -> bool:
+        """True when the exact path streams windows instead of holding the
+        whole packed corpus on the device."""
+        return (self.max_device_bytes is not None
+                and self.index.meta.payload_bytes > self.max_device_bytes)
 
     def match_counts(self, qwords: torch.Tensor, cwords: torch.Tensor):
         return packed_match(qwords, cwords, self.index.spec)
@@ -218,7 +319,8 @@ class IndexSearcher(BatchedAdmission):
     # -- scoring ---------------------------------------------------------
     def _rerank_sizes(self, q_sizes) -> Optional[torch.Tensor]:
         """Query sizes on the device for the Theorem-1 rerank, or None on
-        indexes without set sizes (sparse-limit constants)."""
+        indexes without set sizes (sparse-limit constants).  The document
+        sizes upload once, under the lock, by a blocking copy."""
         meta = self.index.meta
         if self.index.set_sizes is None or not meta.s:
             return None
@@ -226,8 +328,12 @@ class IndexSearcher(BatchedAdmission):
             raise ValueError("index stores set sizes; pass query_sizes "
                              "to search() for the exact Theorem-1 rerank")
         if self._doc_sizes is None:
-            self._doc_sizes = torch.from_numpy(
-                self.index.set_sizes.astype(np.int64)).to(self.device)
+            with self._lock:
+                if self._doc_sizes is None:
+                    self._doc_sizes = torch.from_numpy(
+                        self.index.set_sizes.astype(np.int64)).to(
+                            self.device)
+        on_stream(self._doc_sizes)
         return torch.from_numpy(
             np.asarray(q_sizes).astype(np.int64)).to(self.device)
 
@@ -246,9 +352,11 @@ class IndexSearcher(BatchedAdmission):
 
     # -- exact brute force ------------------------------------------------
     def _exact(self, qwords, topk: int, q_sizes):
+        if self.streamed:
+            return self._exact_streamed(qwords, topk, q_sizes)
         n, q = self.index.n, qwords.shape[0]
         kk = min(topk, n)
-        corpus = self.index.corpus
+        corpus = on_stream(self.index.corpus)
         best_s = torch.full((q, kk), -torch.inf, device=self.device)
         best_i = torch.full((q, kk), -1, dtype=torch.int64,
                             device=self.device)
@@ -260,19 +368,103 @@ class IndexSearcher(BatchedAdmission):
             best_s, best_i = topk_merge(best_s, best_i, sc, ids)
         return lambda: pad_result(best_i, best_s, q, topk, kk)
 
+    def stream_plan(self) -> StreamPlan:
+        """Size the streamed windows so the budget is actually honored
+        (the reference's rule, rule for rule).
+
+        ``inflight = prefetch + 2`` windows can be device-resident at once
+        (scanned + queued + producer-held), so each window gets
+        ``max_device_bytes // inflight`` bytes, floored to a ``block``
+        multiple.  When that leaves less than one ``corpus_block`` of
+        rows, the pipeline depth shrinks first (bigger windows beat deeper
+        prefetch) and then the scan block itself shrinks below
+        ``corpus_block`` -- down to the hard floor of one row per window,
+        the only case where the stated budget is unsatisfiable.
+        """
+        row_bytes = 4 * self.index.meta.words
+        budget = self.max_device_bytes or 0
+
+        def plan(prefetch: int) -> StreamPlan:
+            rows = budget // ((prefetch + 2) * row_bytes)
+            block = min(self.corpus_block, max(1, rows))
+            window = max(block, rows // block * block)
+            return StreamPlan(window, block, prefetch, row_bytes)
+
+        p = plan(self.stream_prefetch)
+        while p.prefetch > 0 and p.block < self.corpus_block:
+            p = plan(p.prefetch - 1)
+        return p
+
+    def _exact_streamed(self, qwords, topk: int, q_sizes):
+        """Out-of-core exact scan: windows of the mmap'd packed payload
+        stream through ``device_put_iter``; the running top-k threads
+        across windows (bit-identical to the in-core scan, whose blocks
+        score the same pairs and whose merge keeps the same order).
+
+        Trouble on the card, handled here and in ``device_put_iter``:
+        pageable mmap windows go through a pinned ring (reused only after
+        its last copy's event), the copy runs on a side stream, this
+        thread's stream waits on each window's event and the window is
+        recorded on it.  Backpressure: this thread waits out window i's
+        scan (an event on its stream) and drops the window before it takes
+        window i+1, so no more than ``StreamPlan.inflight`` windows are
+        ever alive (``last_window_stats.high_water``).
+        """
+        n, q = self.index.n, qwords.shape[0]
+        kk = min(topk, n)
+        words = self.index.words_host
+        p = self.stream_plan()
+        stats = WindowStats()
+        self.last_window_stats = stats
+        cuda = self.device.type == "cuda"
+
+        def host_windows():
+            for lo in range(0, n, p.window):
+                yield lo, words[lo:min(lo + p.window, n)]
+
+        best_s = torch.full((q, kk), -torch.inf, device=self.device)
+        best_i = torch.full((q, kk), -1, dtype=torch.int64,
+                            device=self.device)
+        ring = self._take_ring() if cuda else None
+        windows = device_put_iter(host_windows, p.prefetch,
+                                  device=self.device, ring=ring, stats=stats)
+        try:
+            for lo, win in windows:
+                rows = win.shape[0]
+                for start in range(0, rows, p.block):
+                    stop = min(start + p.block, rows)
+                    sc = self._score(qwords, win[start:stop],
+                                     slice(lo + start, lo + stop), q_sizes)
+                    ids = torch.arange(lo + start, lo + stop,
+                                       device=self.device)
+                    best_s, best_i = topk_merge(best_s, best_i, sc, ids)
+                if cuda:
+                    scanned = torch.cuda.Event()
+                    scanned.record()
+                    scanned.synchronize()
+                del win
+        finally:
+            windows.close()            # joins the producer thread
+            if ring is not None:
+                self._give_ring(ring)
+        return lambda: pad_result(best_i, best_s, q, topk, kk)
+
+    def _take_ring(self) -> PinnedRing:
+        with self._lock:
+            return self._rings.pop() if self._rings else PinnedRing()
+
+    def _give_ring(self, ring: PinnedRing) -> None:
+        with self._lock:
+            self._rings.append(ring)
+
     # -- LSH candidates + rerank ------------------------------------------
-    def _lsh(self, qwords, topk: int, q_sizes, qkeys=None):
+    def _lsh_dispatch(self, qwords, topk: int, q_sizes, cand):
+        """Queue one sub-batch's rerank; returns (top ids, top scores,
+        candidate counts, kk) with the tensors still on the device."""
         q = qwords.shape[0]
-        if qkeys is None:
-            qkeys = u32.to_numpy(band_keys_packed(qwords, self.index.spec,
-                                                  self.index.banding))
-        cand = self.index.candidates_batch(qkeys)
         n_cand = np.array([c.size for c in cand], np.int64)
         if not n_cand.any():
-            res = SearchResult(np.full((q, topk), -1, np.int64),
-                               np.full((q, topk), -np.inf, np.float32),
-                               n_cand)
-            return lambda: res
+            return None, None, n_cand, 0
         union = np.unique(np.concatenate(cand))
         # pad the union to a power of two >= 128, as the reference buckets
         # candidate widths; padding slots point at row 0, not members
@@ -283,14 +475,50 @@ class IndexSearcher(BatchedAdmission):
         for i, c in enumerate(cand):
             member[i, np.searchsorted(union, c)] = True
         ids_dev = torch.from_numpy(ids).to(self.device)
-        cwords = self.index.corpus.index_select(0, ids_dev)
+        if self.streamed:
+            # out-of-core corpus: gather only the candidate rows off the
+            # mmap'd payload instead of uploading the whole matrix
+            cwords = u32.from_numpy(self.index.words_host[ids], self.device)
+        else:
+            cwords = on_stream(self.index.corpus).index_select(0, ids_dev)
         sc = self._score(qwords, cwords, ids_dev, q_sizes)
         sc = torch.where(torch.from_numpy(member).to(self.device), sc,
                          -torch.inf)
         kk = min(topk, c_pad)
         top_s, sel = topk_desc(sc, kk)
         top_i = torch.where(torch.isneginf(top_s), -1, ids_dev[sel])
-        return lambda: pad_result(top_i, top_s, q, topk, kk, n_cand)
+        return top_i, top_s, n_cand, kk
+
+    def _lsh(self, qwords, topk: int, q_sizes, qkeys=None):
+        q = qwords.shape[0]
+        if qkeys is None:
+            qkeys = u32.to_numpy(band_keys_packed(qwords, self.index.spec,
+                                                  self.index.banding))
+        cand = self.index.candidates_batch(qkeys)
+        step = self.lsh_batch or q
+        # every sub-batch is queued before any is harvested: the host
+        # builds sub-batch i+1's union while the device reranks i
+        inflight = []
+        for lo in range(0, q, step):
+            hi = min(lo + step, q)
+            sizes = None if q_sizes is None else q_sizes[lo:hi]
+            inflight.append(self._lsh_dispatch(qwords[lo:hi], topk, sizes,
+                                               cand[lo:hi]))
+
+        def harvest() -> SearchResult:
+            out_i = np.full((q, topk), -1, np.int64)
+            out_s = np.full((q, topk), -np.inf, np.float32)
+            n_cand = np.zeros(q, np.int64)
+            row = 0
+            for top_i, top_s, nc, kk in inflight:
+                m = nc.shape[0]
+                if kk:
+                    out_i[row:row + m, :kk] = top_i.cpu().numpy()
+                    out_s[row:row + m, :kk] = top_s.cpu().numpy()
+                n_cand[row:row + m] = nc
+                row += m
+            return SearchResult(out_i, out_s, n_cand)
+        return harvest
 
     # -- public API -------------------------------------------------------
     def dispatch(self, queries: Queries, topk: int = 10, *,
@@ -298,8 +526,9 @@ class IndexSearcher(BatchedAdmission):
                  query_sizes: Optional[np.ndarray] = None,
                  qkeys: Optional[np.ndarray] = None
                  ) -> Callable[[], SearchResult]:
-        """Queue a batch's device work now; the returned harvest callable
-        waits for it and builds the ``SearchResult``.  ``qkeys`` passes
+        """Queue a batch's device work now on the current stream; the
+        returned harvest callable waits for it and builds the
+        ``SearchResult`` (call it on the same stream).  ``qkeys`` passes
         band keys the caller already computed (the router computes them
         once per batch, not once per shard)."""
         if topk < 1:

@@ -154,6 +154,21 @@ def check(status: int, what: str) -> None:
                            f"{status}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under one process-wide lock.
+
+    Several dispatch threads launch through one wrapper at once; a bare
+    ``+= 1`` on the attribute is a read-modify-write that can lose an
+    increment between threads.  Readers read the attribute and resetters
+    assign 0 to it, both single operations.
+    """
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def stream_handle(device: torch.device) -> int:
     """The current CUDA stream of ``device`` as an int for ``c_void_p``."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -119,7 +119,7 @@ def packed_match_cuda(qwords: torch.Tensor, cwords: torch.Tensor, *, k: int,
                 both.data_ptr() if sentinel else None,
                 build.stream_handle(dev))
         build.check(status, "packed_match")
-        packed_match_cuda.launches += 1
+        build.count_launch(packed_match_cuda)
     return (matches, both) if sentinel else matches
 
 

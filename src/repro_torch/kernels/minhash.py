@@ -115,7 +115,7 @@ def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
                 words.shape[1] if pack else 0, MINHASH_BLK_K,
                 build.stream_handle(dev))
         build.check(status, "minhash2u")
-        minhash2u_cuda.launches += 1
+        build.count_launch(minhash2u_cuda)
     return (out, words) if pack else out
 
 
@@ -138,7 +138,7 @@ def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
                 words.shape[1] if pack else 0, MINHASH_BLK_K,
                 build.stream_handle(dev))
         build.check(status, "minhash4u")
-        minhash4u_cuda.launches += 1
+        build.count_launch(minhash4u_cuda)
     return (out, words) if pack else out
 
 

@@ -124,7 +124,7 @@ def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
             a2.data_ptr(), s, bin_bits, int(variant == "high"), code_b,
             out.data_ptr(), OPH_THREADS, build.stream_handle(dev))
     build.check(status, "oph2u")
-    oph2u_cuda.launches += 1
+    build.count_launch(oph2u_cuda)
     return out
 
 
@@ -145,7 +145,7 @@ def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
             bin_bits, code_b, out.data_ptr(), OPH_THREADS,
             build.stream_handle(dev))
     build.check(status, "oph4u")
-    oph4u_cuda.launches += 1
+    build.count_launch(oph4u_cuda)
     return out
 
 

@@ -160,7 +160,7 @@ def sigbag_cuda(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                 int(table.dtype == torch.bfloat16), out.data_ptr(),
                 build.stream_handle(dev))
         build.check(status, "sigbag")
-        sigbag_cuda.launches += 1
+        build.count_launch(sigbag_cuda)
     return out
 
 

@@ -15,13 +15,26 @@ clock that waits for the device, as the reference does.
     PYTHONPATH=src python -m repro_torch.launch.serve --index
         [--mode exact|lsh] [--docs N] [--queries N] [--requests N]
         [--topk K] [--k K] [--b B] [--scheme S] [--densify D]
-        [--threshold T] [--shards S] [--device cuda|cpu]
+        [--threshold T] [--shards S] [--device-window BYTES]
+        [--serve --rate QPS --zipf-alpha A --max-delay-ms MS --workers N
+         --admission none|reject|shed-oldest|degrade-to-lsh --max-queue Q
+         --on-shard-failure fail|partial --deadline-budget-ms MS
+         --metrics-port P --trace-out PATH] [--device cuda|cpu]
 
 Makes a synthetic corpus, hashes it to packed ``.sig`` shards
 (``preprocess_shards``), builds the banded ``.idx`` (or ``--shards S``
 of them behind a ``ShardedIndex``), then serves ``--requests`` batches of
 ``--queries`` corpus rows through ``submit`` / ``flush`` and prints the
 p50 / max batch latency, q/s and self-hit@1.
+``--device-window`` caps the device-resident packed corpus bytes
+(``max_device_bytes``): beyond it the exact path streams mmap windows.
+``--serve`` puts the continuous-batching ``SearchServer`` in front of the
+searcher instead and replays ``--requests x --queries`` Zipf-popular
+corpus rows at a Poisson ``--rate`` offered load (``--queries`` is then
+the server's ``max_batch``), printing the server's latency, queue-wait and
+flush percentiles, achieved q/s, worker occupancy and admission
+accounting; ``--metrics-port`` serves live Prometheus metrics and
+``--trace-out`` writes the request span trees as trace-event JSON.
 
 Both run on the card unless ``--device cpu``, where the kernels' plain
 versions run.
@@ -78,22 +91,32 @@ def serve_index(args) -> None:
             t_build = time.perf_counter() - t0
             n_total = sum(m.n for _, m in built)
             payload = sum(m.payload_bytes for _, m in built)
-            searcher = load_sharded(shard_dir, device=dev)
+            searcher = load_sharded(
+                shard_dir, device=dev, max_device_bytes=args.device_window,
+                on_shard_failure=args.on_shard_failure or "fail")
             words_of = _sharded_row_reader(searcher)
             what = f"{args.shards} shards"
+            streamed = any(s.streamed for s in searcher.searchers)
         else:
             path = os.path.join(tmp, "corpus.idx")
             meta = build_index(sig_paths, path, cfg, device=dev)
             t_build = time.perf_counter() - t0
             n_total, payload = meta.n, meta.payload_bytes
             index = load_index(path, device=dev)
-            searcher = IndexSearcher(index, device=dev)
+            searcher = IndexSearcher(index, device=dev,
+                                     max_device_bytes=args.device_window)
             words_of = lambda i: np.asarray(index.words_host[i])
             what = "1 index"
+            streamed = searcher.streamed
         print(f"indexed {n_total} docs into {what} (k={k} b={b} "
               f"bands={cfg.n_bands}x{cfg.rows_per_band}): "
               f"hash {t_hash:.2f}s, build {t_build:.2f}s, "
-              f"payload {payload:,} B")
+              f"payload {payload:,} B"
+              + (f", streamed (window {args.device_window:,} B)"
+                 if streamed else ""))
+        if args.serve:
+            _serve_traffic(searcher, words_of, n_total, args)
+            return
         rng = np.random.default_rng(1)
         lat = []
         hits0 = None
@@ -113,6 +136,84 @@ def serve_index(args) -> None:
               f"({args.mode}): p50={lat[len(lat) // 2]:.1f}ms "
               f"max={lat[-1]:.1f}ms {qps:.0f} q/s "
               f"self-hit@1={hits0:.2f}")
+
+
+def _serve_traffic(searcher, words_of, n_total: int, args) -> None:
+    """Open-loop serving: SearchServer under Zipf/Poisson traffic."""
+    from repro_torch.launch.server import (RequestShed, SearchServer,
+                                           ZipfianTraffic)
+    from repro_torch.obs.trace import get_tracer
+
+    exporter = None
+    if args.metrics_port is not None:
+        from repro_torch.obs.export import start_http_exporter
+        exporter = start_http_exporter(port=args.metrics_port)
+        print(f"metrics: {exporter.url}/metrics "
+              f"(JSON {exporter.url}/metrics.json, "
+              f"trace {exporter.url}/trace)")
+    tracer = get_tracer()
+    if args.trace_out:
+        tracer.reset(enabled=True)
+
+    traffic = ZipfianTraffic(n_total, alpha=args.zipf_alpha, seed=1)
+    m = args.requests * args.queries
+    ids = traffic.ids(m)
+    arrivals = traffic.arrival_offsets(m, args.rate)
+    budget = (args.deadline_budget_ms / 1e3
+              if args.deadline_budget_ms is not None else None)
+    server = SearchServer(searcher, max_batch=args.queries,
+                          max_delay_s=args.max_delay_ms / 1e3,
+                          topk=args.topk, mode=args.mode,
+                          num_workers=args.workers,
+                          admission=args.admission,
+                          max_queue=args.max_queue,
+                          deadline_budget_s=budget,
+                          on_shard_failure=args.on_shard_failure)
+    try:
+        with server:
+            t_start = time.monotonic()
+            handles = []
+            for doc, at in zip(ids, arrivals):
+                lag = at - (time.monotonic() - t_start)
+                if lag > 0:
+                    time.sleep(lag)
+                handles.append(server.submit(words_of(int(doc)),
+                                             deadline_s=budget))
+            for h in handles:
+                try:
+                    h.result(timeout=120.0)
+                except RequestShed:
+                    pass                # accounted in stats.shed
+            elapsed = time.monotonic() - t_start
+    finally:
+        if args.trace_out:
+            n_ev = tracer.export(args.trace_out)
+            print(f"trace: wrote {n_ev} events to {args.trace_out} "
+                  "(open in https://ui.perfetto.dev)")
+        if exporter is not None:
+            exporter.close()
+    snap = server.stats.snapshot()
+    print(f"served {snap['requests']} requests in {snap['batches']} "
+          f"micro-batches over {snap['workers']} worker(s) "
+          f"(mean {snap['mean_batch']:.1f}/batch, "
+          f"offered {args.rate:.0f} q/s, achieved "
+          f"{snap['requests'] / elapsed:.0f} q/s)")
+    print(f"latency p50={snap['latency_p50_ms']:.1f}ms "
+          f"p99={snap['latency_p99_ms']:.1f}ms  queue-wait "
+          f"p50={snap['queue_wait_p50_ms']:.1f}ms  flush "
+          f"p50={snap['flush_p50_ms']:.1f}ms  triggers: "
+          f"full={snap['flush_full']} aged={snap['flush_aged']} "
+          f"deadline={snap['flush_deadline']} drain={snap['flush_drain']}")
+    occ = " ".join(f"{o:.2f}" for o in snap["worker_occupancy"])
+    print(f"admission={args.admission}: shed={snap['shed']} "
+          f"(rate {snap['shed_rate']:.3f}) degraded={snap['degraded']} "
+          f"deadline-miss rate {snap['deadline_miss_rate']:.3f}  "
+          f"worker occupancy [{occ}]")
+    if args.on_shard_failure == "partial" or snap["partial"]:
+        print(f"fault tolerance: partial={snap['partial']} "
+              f"(rate {snap['partial_rate']:.3f}) "
+              f"mean coverage {snap['mean_coverage']:.3f} "
+              f"worker restarts {snap['worker_restarts']}")
 
 
 def serve_recsys(args) -> None:
@@ -179,6 +280,47 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=1,
                     help="serve through a ShardedIndex router over S "
                          ".idx shards")
+    ap.add_argument("--device-window", type=int, default=None,
+                    help="max device-resident packed-corpus bytes; larger "
+                         "corpora stream mmap windows (--index)")
+    ap.add_argument("--serve", action="store_true",
+                    help="drive the continuous-batching SearchServer "
+                         "under open-loop Zipf/Poisson traffic (--index)")
+    ap.add_argument("--rate", type=float, default=500.0,
+                    help="offered load in queries/s (--serve)")
+    ap.add_argument("--zipf-alpha", type=float, default=1.1,
+                    help="query-popularity Zipf exponent (--serve)")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0,
+                    help="micro-batching window: max time the oldest "
+                         "queued request waits before a flush (--serve)")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="dispatch workers draining the admission queue, "
+                         "each on its own CUDA stream (--serve; default 1)")
+    ap.add_argument("--admission", default="none",
+                    choices=("none", "reject", "shed-oldest",
+                             "degrade-to-lsh"),
+                    help="overload policy when the queue is full or the "
+                         "projected wait blows the deadline budget "
+                         "(--serve)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission-queue depth; beyond it the "
+                         "--admission policy fires (--serve)")
+    ap.add_argument("--on-shard-failure", default=None,
+                    choices=("fail", "partial"),
+                    help="shard-failure policy of the sharded router: "
+                         "'partial' serves surviving shards with coverage "
+                         "accounting (--serve --shards)")
+    ap.add_argument("--deadline-budget-ms", type=float, default=None,
+                    help="per-request latency budget the admission "
+                         "policy defends (--serve)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve live Prometheus metrics on this port "
+                         "(/metrics, /metrics.json, /trace; 0 = "
+                         "ephemeral; --serve)")
+    ap.add_argument("--trace-out", default=None,
+                    help="enable request tracing and write the "
+                         "Perfetto-loadable trace-event JSON here on "
+                         "exit (--serve)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu (the plain versions)")
     return ap

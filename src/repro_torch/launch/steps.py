@@ -7,7 +7,7 @@ model, on the generator's device) and ``step(model, inputs)``;
 ``init_inputs(program, generator)`` draws a batch of inputs in the
 reference's ranges.  Only the serving cells are ported (``serve_p99``,
 ``serve_bulk``); training and candidate retrieval are ``ROADMAP.md``
-queue 1 item 9.
+queue 1, "Recsys, the rest".
 """
 
 from __future__ import annotations

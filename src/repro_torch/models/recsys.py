@@ -17,9 +17,9 @@ and which holds the frontend's 2U coefficients ``a1``, ``a2`` as int32
 bit-pattern buffers.  Unlike the reference, whose coefficients come from
 numpy seeded with Python's per-process string hash, they are drawn from
 the generator that draws every weight, so a seed gives the same model in
-every process.  Not ported yet (``ROADMAP.md`` queue 1 item 9): the
-``self-attn``, ``target-attn`` and ``multi-interest`` interactions,
-``recsys_loss`` and ``retrieval_scores``.
+every process.  Not ported yet (``ROADMAP.md`` queue 1, "Recsys, the
+rest"): the ``self-attn``, ``target-attn`` and ``multi-interest``
+interactions, ``recsys_loss`` and ``retrieval_scores``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from repro_torch.kernels.minhash import minhash2u
 from repro_torch.kernels.sigbag import sigbag
 from repro_torch.models.layers import init_mlp, mlp, normal_init
 
-_TODO = "is not ported yet (ROADMAP.md queue 1 item 9)"
+_TODO = "is not ported yet (ROADMAP.md queue 1, 'Recsys, the rest')"
 
 
 @dataclasses.dataclass(frozen=True)

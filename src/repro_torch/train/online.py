@@ -15,7 +15,10 @@
     (load / kernel / train seconds, bytes read).
   * ``make_family`` -- the switch over the paper's hashing schemes.
 
-The reference's metrics-registry collectors are not part of the port.
+Every ``SignatureCache`` exports its footprint and its replay loader's
+counters through ``repro_torch.obs`` (``_sigcache_samples``,
+``loader_collector("replay")``), so ``/metrics`` of a serving process
+shows the learning path too.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from repro_torch.core.hashing import Hash2U, Hash4U
 from repro_torch.core.oph import OPH
 from repro_torch.data.lockfile import FileLock
 from repro_torch.data.pipeline import (LoaderStats, SignatureStream,
-                                       prefetch_iter, read_with_retries)
+                                       loader_collector, prefetch_iter,
+                                       read_with_retries)
 from repro_torch.data.sigshard import read_sig_shard, write_sig_shard
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import PackedSignatures
@@ -103,6 +107,36 @@ class CacheStats:
     def reduction(self) -> float:
         """Original/hashed size ratio -- the paper's Table-2/§6 number."""
         return self.bytes_original / max(self.bytes_cached, 1)
+
+
+def _sigcache_samples(cache: "SignatureCache"):
+    """Registry collector: cache footprint gauges + lifecycle counters.
+
+    Reads ``cache.stats`` at collect time -- a repopulate (TTL eviction)
+    swaps in a fresh ``CacheStats``, and the gauges must follow it.
+    """
+    from repro_torch.obs.metrics import Sample
+    st = cache.stats
+    gauges = (
+        ("sigcache_bytes_original", "raw shard bytes read to build the cache",
+         st.bytes_original),
+        ("sigcache_bytes_cached", "packed signature shard bytes on disk",
+         st.bytes_cached),
+        ("sigcache_bytes_payload", "signature payload bytes (k*b-bit budget)",
+         st.bytes_payload),
+        ("sigcache_shards", "signature shards tracked", st.shards),
+        ("sigcache_uncached_chunks", "chunks past max_cache_bytes (re-hashed)",
+         st.uncached_chunks),
+        ("sigcache_examples", "examples cached", st.examples),
+    )
+    for name, help, value in gauges:
+        yield Sample(name, "gauge", help, (), float(value))
+    yield Sample("sigcache_write_seconds_total", "counter",
+                 "wall clock spent writing signature shards", (),
+                 float(st.write_s))
+    yield Sample("sigcache_ttl_dropped_total", "counter",
+                 "stale shard files removed by TTL eviction", (),
+                 float(cache.ttl_dropped))
 
 
 def _wire_spec(b: int, sentinel: bool) -> Tuple[int, bool]:
@@ -183,6 +217,10 @@ class SignatureCache:
                                             self.cache_dir,
                                             ignore_errors=True)
                            if self._owns_dir else None)
+        from repro_torch.obs.metrics import get_registry
+        reg = get_registry()
+        reg.register_object(self, _sigcache_samples)
+        reg.register_object(self.replay_stats, loader_collector("replay"))
 
     # -- stats protocol (read by OnlineTrainer as per-epoch deltas) -----
     @property
