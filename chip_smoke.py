@@ -28,7 +28,11 @@ request) and ``serve_bulk`` (262,144), holding ``sigbag`` and
 ``minhash2u`` at the frontend's shapes against their plain versions and
 the served scores against the same model scoring through the plain
 versions, and runs the ``repro_torch.launch.serve --arch wide-deep
---no-smoke`` entry point.
+--no-smoke`` entry point.  Phase 7 serves phase 5's corpus through
+``SearchServer``.  Phase 8 drives the paper's batch-learning path on
+phase 3's rows: permutations vs 2U vs 4U (Fig. 4) through
+``minhash_signatures`` and ``Trainer``, a restarted fit, the VW baseline,
+``online_epochs``, offline dedup and the Appendix-A estimator.
 Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
@@ -184,6 +188,22 @@ N_REQUESTS, WARMUP_REQUESTS, CLI_REQUESTS = 128, 3, 16
 BULK_ROWS = 262_144
 BULK_REQUESTS = 3      # serve_bulk requests after one warm-up
 SIGBAG_LOOP = 20       # back-to-back 512-row launches per timed sample
+
+# Batch learning (phase 8): phase 3's webspam-width rows (40,000 train,
+# 10,000 test), k = 200, s = 24, as examples/quickstart.py runs the paper's
+# Fig. 4 (perm / 2U / 4U) and bbit_vs_vw.py its Figs 10-12
+K_BATCH, BATCH_BITS, BATCH_STEPS = 200, (1, 4, 8), 100
+FAIL_AT, CKPT_EVERY = 50, 25          # the restarted fit
+CHECK_ROWS = 1_000                    # 4U Mod and kernel-vs-plain rows
+VW_BITS = (8, 14)                     # equal-k (m = 256) and 2^14 bins
+ONLINE_EPOCHS, ONLINE_BATCH = 2, 512
+# offline dedup (§1): 20,000 uniform sets of 3,728 ids over [0, 2^24) and
+# 2,000 copies of the first 2,000 with 5% of ids replaced (R ~ 0.905)
+DEDUP_SETS, DEDUP_DUPS, DEDUP_NNZ, DEDUP_SWAP, DEDUP_SEED = 20_000, 2_000, 3_728, 0.05, 18
+DEDUP_BANDS, DEDUP_ROWS, DEDUP_THRESHOLD = 50, 4, 0.8
+# Appendix A (examples/resemblance.py): Table 5 pairs at D = 2^18, k = 256,
+# 20 repetitions, as one 2U family of 20 x 256 functions for each b
+APPX_D_BITS, APPX_K, APPX_REPS, APPX_BITS = 18, 256, 20, (1, 2, 4)
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -896,6 +916,11 @@ def run(torch) -> int:
 
     # -- phase 7: the search server over phase 5's corpus -----------------
     rows["packed_match"]["launches"] += search_serving(torch, dev, served)
+
+    # -- phase 8: batch learning, VW, dedup and Appendix A ---------------
+    batch_launches = batch_learning(torch, dev, train_sets, y_train, test)
+    for name, n_launch in batch_launches.items():
+        rows[name]["launches"] += n_launch
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1789,6 +1814,294 @@ def search_serving(torch, dev, ctx) -> int:
     if min(launches.values()) < 1:
         raise AssertionError("a served path never launched packed_match")
     return total
+
+
+def batch_learning(torch, dev, train_sets, y_train, test) -> dict:
+    """Phase 8: the paper's batch-learning path on phase 3's rows --
+    permutations vs 2U vs 4U (Fig. 4, and their storage), the VW
+    baseline (Figs 10-12), a restarted fit, ``online_epochs``, offline
+    dedup (§1) and the Appendix-A estimator.  Returns the ``minhash2u`` /
+    ``minhash4u`` launches of the path."""
+    import numpy as np
+
+    from repro_torch.core.bbit import (lowest_bits, storage_bits,
+                                       vw_storage_bits)
+    from repro_torch.core.estimator import (empirical_p_hat,
+                                            estimate_resemblance,
+                                            theoretical_variance)
+    from repro_torch.core.hashing import (Hash2U, Hash4U, PermutationFamily,
+                                          family_storage_bytes)
+    from repro_torch.core.lsh import LSHConfig, band_keys, candidate_pairs, dedup
+    from repro_torch.core.minhash import minhash_signatures
+    from repro_torch.core.u32 import to_numpy
+    from repro_torch.core.vw import VWHasher
+    from repro_torch.data.sparse import from_lists
+    from repro_torch.data.synthetic import TABLE5_PAIRS, word_pair_sets
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.models.linear import (LinearModel, accuracy, asgd_model,
+                                           make_loss_fn, sgd_svm_init,
+                                           sgd_svm_step)
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import (TrainState, Trainer, make_train_step,
+                                   online_epochs)
+
+    wrappers = {"minhash2u": kmin.minhash2u_cuda,
+                "minhash4u": kmin.minhash4u_cuda}
+    calls = dict.fromkeys(wrappers, 0)      # launches the code below makes
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train = from_lists(train_sets, y_train, device=dev)
+    n_rows = train.n + test.n
+    cpu_gen = torch.Generator().manual_seed(SEED + 8)
+    dev_gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def signatures(batch, fam):
+        if isinstance(fam, Hash2U):
+            calls["minhash2u"] += 1
+        elif isinstance(fam, Hash4U) and fam.use_bitmod:
+            calls["minhash4u"] += 1
+        return minhash_signatures(batch.indices, batch.mask, fam)
+
+    def timed(fn):
+        """(fn(), ms): host clock around work that ends in a sync."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- families, their storage, and signatures ---------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    perm, perm_ms = timed(lambda: PermutationFamily.create(
+        K_BATCH, 1 << S, generator=dev_gen, device=dev))
+    fams = {"perm": perm,
+            "2u": Hash2U.create(K_BATCH, S, generator=cpu_gen, device=dev),
+            "4u": Hash4U.create(K_BATCH, S, generator=cpu_gen, device=dev)}
+    log(f"[batch] family storage, k={K_BATCH}, D=2^{S}: permutations "
+        f"{family_storage_bytes(perm):,} B (a (D, k) int32 table, drawn on "
+        f"the card in {perm_ms:.0f} ms) vs 2U "
+        f"{family_storage_bytes(fams['2u']):,} B vs 4U "
+        f"{family_storage_bytes(fams['4u']):,} B")
+    nonzeros = int(train.nnz_per_row().sum()) + int(test.nnz_per_row().sum())
+    # the gather's bound: indices read once, one 4k-byte table row a
+    # nonzero, the signatures written once
+    perm_bound, perm_by = bound(4 * nonzeros * (1 + K_BATCH)
+                                + 4 * n_rows * K_BATCH, 0)
+    sigs = {}
+    for name, fam in fams.items():
+        sigs[name], ms = timed(lambda: (signatures(train, fam),
+                                        signatures(test, fam)))
+        log(f"[batch] {name} signatures of {n_rows} rows through "
+            f"minhash_signatures: {ms * 1e4 / n_rows:.3f} ms per 10,000 rows"
+            + (f" (bound {perm_bound * 1e4 / n_rows:.3f} ms, {perm_by})"
+               if name == "perm" else ""))
+    del fams["perm"], perm                  # 13.4 GB back before training
+    mod = Hash4U(a=fams["4u"].a, s=S, use_bitmod=False)
+    head = slice(0, CHECK_ROWS)
+    mod_sig, ms = timed(lambda: minhash_signatures(
+        train.indices[head], train.mask[head], mod))
+    if not torch.equal(mod_sig, sigs["4u"][0][head]):
+        raise AssertionError("4U Mod signatures != 4U BitMod signatures")
+    log(f"[batch] 4U Mod (plain PyTorch) on {CHECK_ROWS} rows: "
+        f"{ms * 1e4 / CHECK_ROWS:.1f} ms per 10,000 rows, == BitMod bit "
+        f"for bit")
+
+    # -- Fig. 4: batch SVM for b in BATCH_BITS and each family -------------
+    def fit(feats, y, b, fkind, dim, ckpt_dir=None, fail_at=None):
+        loss = make_loss_fn("svm", fkind, b, C=1.0)
+        opt = adamw(constant(0.05))
+        state = TrainState.create(LinearModel.create(dim, dev), opt)
+        step = make_train_step(lambda p, batch: loss(p, *batch), opt)
+        if fail_at is not None:
+            armed, inner = [True], step
+
+            def step(st, batch):
+                if armed[0] and int(st.step) == fail_at:
+                    armed[0] = False
+                    raise RuntimeError("injected node failure")
+                return inner(st, batch)
+
+        trainer = Trainer(step, ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY,
+                          max_failures=1)
+        state = trainer.fit(state, lambda: iter([(feats, y)] * BATCH_STEPS),
+                            BATCH_STEPS)
+        return state, statistics.median(trainer.heartbeat.history) * 1e3
+
+    # the gather's backward is a scatter-add: deterministic mode makes each
+    # step bit-reproducible, so the restarted fit must equal the unfailed one
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        accs, step_ms, kept = {}, [], {}
+        for b in BATCH_BITS:
+            for name in sigs:
+                tr_b, te_b = (lowest_bits(x, b) for x in sigs[name])
+                state, ms = fit(tr_b, train.labels, b, "hashed",
+                                K_BATCH << b)
+                step_ms.append(ms)
+                accs[(b, name)] = float(accuracy(
+                    state.params, te_b, test.labels, feature_kind="hashed",
+                    b=b))
+                if (b, name) == (8, "2u"):
+                    kept = dict(state=state, feats=tr_b)
+            got = [accs[(b, n)] for n in sigs]
+            log(f"[batch fig4] b={b}: test acc " + ", ".join(
+                f"{n} {accs[(b, n)]:.4f}" for n in sigs)
+                + f"; spread {max(got) - min(got):.4f}")
+        low = {key: a for key, a in accs.items() if not a > 0.5 + ACC_MARGIN}
+        if low:
+            raise AssertionError(f"not above chance + {ACC_MARGIN}: {low}")
+        log(f"[batch fig4] {len(accs)} fits x {BATCH_STEPS} full-batch steps "
+            f"of {train.n} rows: {statistics.median(step_ms):.3f} ms a step "
+            f"(median; deterministic algorithms)")
+        ckpt_dir = str(SMOKE_DIR / "batch_ckpt")
+        restarted, _ = fit(kept["feats"], train.labels, 8, "hashed",
+                           K_BATCH << 8, ckpt_dir=ckpt_dir, fail_at=FAIL_AT)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    want = kept["state"]
+    if not (int(restarted.step) == BATCH_STEPS
+            and torch.equal(restarted.params.w, want.params.w)
+            and torch.equal(restarted.params.bias, want.params.bias)):
+        raise AssertionError("restarted fit != the unfailed fit")
+    log(f"[batch restart] 2u b=8, failure injected at step {FAIL_AT}, "
+        f"checkpoints every {CKPT_EVERY}: restored and finished; weights == "
+        f"the unfailed fit's, bit for bit")
+
+    # -- Figs 10-12: the VW baseline ---------------------------------------
+    for m_bits in VW_BITS:
+        vw = VWHasher.create(m_bits, "u2", generator=cpu_gen, device=dev)
+        (x_tr, x_te), vw_ms = timed(lambda: (vw(train.indices, train.mask),
+                                             vw(test.indices, test.mask)))
+        state, ms = fit(x_tr, train.labels, 0, "dense", vw.m)
+        acc = float(accuracy(state.params, x_te, test.labels,
+                             feature_kind="dense"))
+        if not np.isfinite(acc):
+            raise AssertionError(f"VW m=2^{m_bits}: accuracy {acc}")
+        log(f"[batch vw] m=2^{m_bits}: hashing {n_rows} rows {vw_ms:.1f} ms"
+            f", ({train.n}, {vw.m}) float32 {x_tr.numel() * 4:,} B, "
+            f"{ms:.3f} ms a step, test acc {acc:.4f}; "
+            f"{vw_storage_bits(vw.m):,} bits an example vs b-bit "
+            f"{storage_bits(K_BATCH, 8):,} (k={K_BATCH}, b=8), b-bit acc "
+            f"{accs[(8, '2u')]:.4f}")
+        del x_tr, x_te
+
+    # -- online_epochs over the 2U b=8 signatures --------------------------
+    tr8, te8 = (lowest_bits(x, 8) for x in sigs["2u"])
+
+    def epoch():
+        for i in range(0, train.n, ONLINE_BATCH):
+            yield tr8[i:i + ONLINE_BATCH], train.labels[i:i + ONLINE_BATCH]
+
+    final, times, evals = online_epochs(
+        lambda st, bt: sgd_svm_step(st, bt[0], bt[1], lam=1e-4, eta0=0.5,
+                                    b=8, average=True),
+        sgd_svm_init(K_BATCH << 8, avg_start=100.0, device=dev), epoch,
+        ONLINE_EPOCHS, eval_fn=lambda st: accuracy(
+            st.model, te8, test.labels, feature_kind="hashed", b=8))
+    for e, (et, acc) in enumerate(zip(times, evals)):
+        log(f"[batch online] epoch {e}: EpochTimes(load_s={et.load_s:.4f}, "
+            f"train_s={et.train_s:.4f}), {-(-train.n // ONLINE_BATCH)} "
+            f"mini-batches of {ONLINE_BATCH}, test acc {acc:.4f}")
+    if not evals[-1] > 0.5 + ACC_MARGIN:
+        raise AssertionError(f"online SGD accuracy {evals[-1]:.4f}")
+    log(f"[batch online] ASGD (averaged from step 100) test acc "
+        f"{float(accuracy(asgd_model(final), te8, test.labels, feature_kind='hashed', b=8)):.4f}")
+
+    # -- offline dedup (§1) -------------------------------------------------
+    rng = np.random.default_rng(DEDUP_SEED)
+    corpus = [np.unique(r) for r in
+              rng.integers(0, 1 << S, (DEDUP_SETS, DEDUP_NNZ))]
+    for i in range(DEDUP_DUPS):
+        s_i = corpus[i].copy()
+        pos = rng.choice(s_i.size, int(DEDUP_SWAP * s_i.size), replace=False)
+        s_i[pos] = rng.integers(0, 1 << S, pos.size)
+        corpus.append(np.unique(s_i))
+    docs = from_lists(corpus, device=dev)
+    cfg = LSHConfig(DEDUP_BANDS, DEDUP_ROWS, 8)
+    fam = Hash2U.create(cfg.k, S, generator=cpu_gen, device=dev)
+    def run_dedup():
+        sig_b = lowest_bits(signatures(docs, fam), cfg.b)
+        return sig_b, dedup(sig_b, [len(c) for c in corpus], 1 << S, cfg,
+                            threshold=DEDUP_THRESHOLD)
+
+    (sig_docs, found), dedup_ms = timed(run_dedup)
+    n_cand = len(candidate_pairs(to_numpy(band_keys(sig_docs, cfg))))
+    planted = {(i, DEDUP_SETS + i) for i in range(DEDUP_DUPS)}
+    got = {(i, j) for i, j, _ in found}
+    if got != planted:
+        raise AssertionError(f"dedup: {len(planted - got)} planted pairs "
+                             f"missed, {len(got - planted)} others found")
+    r_hat = [r for _, _, r in found]
+    log(f"[batch dedup] {len(corpus)} sets: {n_cand} candidate pairs "
+        f"({cfg.n_bands} bands x {cfg.rows_per_band} rows, b={cfg.b}), "
+        f"{len(found)} pairs at R_hat >= {DEDUP_THRESHOLD} == the "
+        f"{DEDUP_DUPS} planted (R_hat {min(r_hat):.3f}-{max(r_hat):.3f}); "
+        f"signatures + dedup {dedup_ms:.1f} ms")
+
+    # -- Appendix A ----------------------------------------------------------
+    D = 1 << APPX_D_BITS
+    pairs = [(name, f1, f2, word_pair_sets(D, f1, f2, R, seed=1))
+             for name, f1, f2, R in TABLE5_PAIRS if f1 + f2 <= D // 2]
+    words = from_lists([s_ for *_, ab in pairs for s_ in ab], device=dev)
+    ratios = []
+    for b in APPX_BITS:
+        fam = Hash2U.create(APPX_REPS * APPX_K, APPX_D_BITS,
+                            generator=cpu_gen, device=dev)
+        sig = lowest_bits(signatures(words, fam), b).reshape(
+            words.n, APPX_REPS, APPX_K)
+        for p, (name, f1, f2, (s1, s2)) in enumerate(pairs):
+            true_r = len(np.intersect1d(s1, s2)) / len(np.union1d(s1, s2))
+            r_hat = estimate_resemblance(
+                empirical_p_hat(sig[2 * p], sig[2 * p + 1]), f1, f2, D, b)
+            mse = float(((r_hat - true_r) ** 2).mean())
+            th = float(theoretical_variance(true_r, f1, f2, D, b, APPX_K))
+            ratios.append(mse / th)
+            log(f"[batch appendix A] {name:<16} R={true_r:.3f} b={b}: "
+                f"MSE {mse:.6f} theory {th:.6f} ratio {mse / th:.2f}")
+    log(f"[batch appendix A] {len(ratios)} (pair, b) cells, {APPX_REPS} "
+        f"repetitions: MSE / theory median {statistics.median(ratios):.2f}, "
+        f"range {min(ratios):.2f}-{max(ratios):.2f}")
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if launches != calls:
+        raise AssertionError(f"launches {launches} != calls {calls}")
+
+    # -- kernels against their plain versions, off the counted path --------
+    idx, cnt = train.indices[head], train.nnz_per_row()[head]
+    f2, f4 = fams["2u"], fams["4u"]
+    nz_train = int(train.nnz_per_row().sum())
+    for name, got, plain, kern in (
+            ("minhash2u", sigs["2u"][0][head],
+             lambda: kmin.minhash2u_plain(idx, cnt, f2.a1, f2.a2, s=S),
+             lambda: kmin.minhash2u_cuda(train.indices, train.nnz_per_row(),
+                                         f2.a1, f2.a2, s=S)),
+            ("minhash4u", sigs["4u"][0][head],
+             lambda: kmin.minhash4u_plain(idx, cnt, f4.a, s=S),
+             lambda: kmin.minhash4u_cuda(train.indices, train.nnz_per_row(),
+                                         f4.a, s=S))):
+        want, plain_ms = timed(plain)
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} b=0: kernel != plain (max |err| {err})")
+        ms = median_ms(kern, torch)
+        four_u = name == "minhash4u"
+        b_ms, b_by = bound(minhash_bytes(nz_train, train.n, K_BATCH, four_u),
+                           minhash_ops(nz_train, train.n, K_BATCH, four_u,
+                                       0, False))
+        log(f"[batch] {name} k={K_BATCH} b=0: bit-exact against its plain "
+            f"version on {CHECK_ROWS} rows; per 10,000 rows the kernel alone "
+            f"{ms * 1e4 / train.n:.4f} ms ({train.n} rows, CUDA events, "
+            f"median of {REPS}), bound {b_ms * 1e4 / train.n:.4f} ms "
+            f"({b_by}), plain {plain_ms * 1e4 / CHECK_ROWS:.1f} ms (1 call "
+            f"on {CHECK_ROWS} rows)")
+    log(f"[batch] {time.perf_counter() - t_phase:.1f} s; launches {launches} "
+        f"== the calls made; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated():,} B ({held:,} B held before "
+        f"the phase)")
+    return launches
 
 
 if __name__ == "__main__":

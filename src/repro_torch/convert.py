@@ -1,5 +1,5 @@
-"""Carry hash families, SGD state and recsys weights from the JAX package
-into the port.
+"""Carry hash families, VW hashers, linear models, SGD and training state
+and recsys weights from the JAX package into the port.
 
 Nothing here imports ``jax`` or ``repro``: a JAX object is read through
 its attributes with ``np.asarray`` (which any array-like supports), so
@@ -18,9 +18,11 @@ import torch
 from repro_torch.core.hashing import Hash2U, Hash4U, PermutationFamily
 from repro_torch.core.oph import OPH
 from repro_torch.core.u32 import from_numpy
+from repro_torch.core.vw import VWHasher
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.linear import LinearModel, SGDState
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
+from repro_torch.train.trainer import TrainState
 
 
 def family_from_jax(family, device: DeviceLike = None):
@@ -36,9 +38,8 @@ def family_from_jax(family, device: DeviceLike = None):
         return Hash2U.from_numpy(np.asarray(family.a1), np.asarray(family.a2),
                                  family.s, family.variant, dev)
     if hasattr(family, "a"):
-        if not getattr(family, "use_bitmod", True):
-            raise ValueError("the port's Hash4U always reduces with BitMod")
-        return Hash4U.from_numpy(np.asarray(family.a), family.s, dev)
+        return Hash4U.from_numpy(np.asarray(family.a), family.s, dev,
+                                 use_bitmod=family.use_bitmod)
     raise TypeError(f"not a hash family: {type(family)}")
 
 
@@ -50,16 +51,57 @@ def coefficients_of(family) -> Dict[str, np.ndarray]:
     return {n: np.asarray(getattr(base, n)).astype(np.uint32) for n in names}
 
 
+def vw_from_jax(vw, device: DeviceLike = None) -> VWHasher:
+    """A reference ``VWHasher`` (``full`` or ``u2``) -> the port's, with
+    the same tables or coefficients."""
+    if vw.mode == "full":
+        return VWHasher.from_numpy(vw.m_bits, "full",
+                                   bin_table=np.asarray(vw.bin_table),
+                                   sign_table=np.asarray(vw.sign_table),
+                                   device=device)
+    return VWHasher.from_numpy(vw.m_bits, vw.mode,
+                               **{n: np.asarray(getattr(vw, n))
+                                  for n in ("a1", "a2", "s1", "s2")},
+                               device=device)
+
+
+def linear_model_from_jax(model, device: DeviceLike = None) -> LinearModel:
+    """A reference ``LinearModel`` -> the port's, float32 on ``device``."""
+    dev = resolve_device(device)
+    return LinearModel(w=_tensor(model.w, dev, np.float32),
+                       bias=_tensor(model.bias, dev, np.float32))
+
+
+def train_state_from_jax(state, device: DeviceLike = None) -> TrainState:
+    """A reference ``TrainState`` -> the port's: ``LinearModel`` params,
+    the ``adamw`` / ``sgd`` state dict (``count`` int32; ``m`` / ``v`` /
+    ``mu`` trees of the params' shape) and the int32 ``step``."""
+    dev = resolve_device(device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(tree(v) for v in x)
+        if hasattr(x, "w") and hasattr(x, "bias"):
+            return linear_model_from_jax(x, dev)
+        return _tensor(x, dev)
+
+    return TrainState(params=tree(state.params),
+                      opt_state=tree(state.opt_state),
+                      step=_tensor(state.step, dev, np.int32))
+
+
+def _tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype)).to(dev)
+
+
 def sgd_state_from_jax(state, device: DeviceLike = None) -> SGDState:
     """A reference ``SGDState`` -> the port's, float32 on ``device``."""
     dev = resolve_device(device)
-
-    def t(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(dev)
-
-    return SGDState(model=LinearModel(w=t(state.model.w), bias=t(state.model.bias)),
-                    t=t(state.t), avg_w=t(state.avg_w),
-                    avg_bias=t(state.avg_bias),
+    t = lambda x: _tensor(x, dev, np.float32)
+    return SGDState(model=linear_model_from_jax(state.model, dev), t=t(state.t),
+                    avg_w=t(state.avg_w), avg_bias=t(state.avg_bias),
                     avg_start=float(state.avg_start))
 
 

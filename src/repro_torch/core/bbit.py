@@ -8,6 +8,9 @@
     straddle words (code_bits = 9 for sentinel b = 8, 17, ...)
   * ``expand_tokens``    -- token ids ``j * 2^b + z_j`` of the implicit
     Eq. (5) expansion
+  * ``expand_onehot``    -- the explicit dense 0/1 expansion (tests, small n)
+  * ``storage_bits`` / ``vw_storage_bits`` / ``raw_storage_bits`` -- the
+    paper's per-example storage accounting
 
 Inputs are uint32 values as int32 bit patterns or int64; uint32 outputs
 are int32 bit patterns (``repro_torch.core.u32``).
@@ -33,6 +36,19 @@ def expand_tokens(sig_b: torch.Tensor, b: int) -> torch.Tensor:
     k = sig_b.shape[-1]
     offs = (torch.arange(k, dtype=torch.int64, device=sig_b.device) << b) & M32
     return narrow(widen(sig_b) + offs).to(torch.int64)
+
+
+def expand_onehot(sig_b: torch.Tensor, b: int,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Explicit (n, k * 2^b) 0/1 expansion of Eq. (5): a one at each
+    token.  As the reference's sum of one-hots, a token outside
+    [0, k * 2^b) adds nothing and two equal tokens add two."""
+    n, k = sig_b.shape
+    dim = k * (1 << b)
+    tok = expand_tokens(sig_b, b)
+    inside = (tok >= 0) & (tok < dim)
+    out = torch.zeros((n, dim), dtype=dtype, device=sig_b.device)
+    return out.scatter_add_(1, torch.where(inside, tok, 0), inside.to(dtype))
 
 
 def pack_signatures(sig_b: torch.Tensor, b: int) -> torch.Tensor:
@@ -106,3 +122,18 @@ def unpack_codes(packed: torch.Tensor, code_bits: int, k: int) -> torch.Tensor:
     if code_bits < 32:
         out = out & ((1 << code_bits) - 1)
     return narrow(out)
+
+
+def storage_bits(k: int, b: int) -> int:
+    """Per-example storage of the hashed representation: k*b bits."""
+    return k * b
+
+
+def vw_storage_bits(m_bins: int, bits_per_counter: int = 32) -> int:
+    """Per-example storage for VW feature hashing with m bins (dense)."""
+    return m_bins * bits_per_counter
+
+
+def raw_storage_bits(avg_nnz: float, index_bits: int = 32) -> float:
+    """Per-example storage of the original sparse binary data."""
+    return avg_nnz * index_bits

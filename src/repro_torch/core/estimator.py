@@ -9,7 +9,10 @@ with, for r1 = f1/D, r2 = f2/D (f = set size):
     C_{1,b} = A_{1,b} r2/(r1+r2) + A_{2,b} r1/(r1+r2)
     C_{2,b} = A_{1,b} r1/(r1+r2) + A_{2,b} r2/(r1+r2)
 
-and the unbiased estimator R̂_b = (P̂_b - C_{1,b}) / (1 - C_{2,b}).
+the unbiased estimator R̂_b = (P̂_b - C_{1,b}) / (1 - C_{2,b}) and its
+theoretical variance (Eq. 11 of [26]), the Appendix-A comparison:
+
+    Var(R̂_b) = P_b (1 - P_b) / (k (1 - C_{2,b})^2)
 
 Everything is float32, as the reference computes without x64, with the
 same operations in the same order; Python scalars enter as float32 (the
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.oph import oph_match_fraction
 
 
 class BBitConstants(NamedTuple):
@@ -62,3 +67,38 @@ def estimate_resemblance(p_hat, f1, f2, D, b):
     """Unbiased R̂_b from the empirical collision fraction P̂_b (Eq. 4)."""
     c = bbit_constants(f1, f2, D, b)
     return (p_hat - c.C1) / (1.0 - c.C2)
+
+
+def theoretical_variance(R, f1, f2, D, b, k):
+    """Var(R̂_b), Eq. (11) of [26], assuming perfectly random permutations."""
+    c = bbit_constants(f1, f2, D, b)
+    Pb = c.C1 + (1.0 - c.C2) * R
+    return Pb * (1.0 - Pb) / (k * (1.0 - c.C2) ** 2)
+
+
+def theoretical_variance_minwise(R, k):
+    """Var of the original (full-value) minwise estimator R̂_M = R(1-R)/k."""
+    return R * (1.0 - R) / k
+
+
+def empirical_p_hat(sig1_b: torch.Tensor, sig2_b: torch.Tensor) -> torch.Tensor:
+    """P̂_b: fraction of matching b-bit values across the k signatures."""
+    return (sig1_b == sig2_b).to(torch.float32).mean(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# One Permutation Hashing variants (scheme="oph")
+# ---------------------------------------------------------------------------
+
+def empirical_p_hat_oph(sig1_b: torch.Tensor, sig2_b: torch.Tensor) -> torch.Tensor:
+    """P̂_b over jointly non-empty bins (sentinel-coded OPH signatures):
+    the Li-Owen-Zhang N_match / (k - N_jointly_empty); on densified
+    signatures it equals ``empirical_p_hat``."""
+    return oph_match_fraction(sig1_b, sig2_b)
+
+
+def estimate_resemblance_oph(sig1_b, sig2_b, f1, f2, D, b):
+    """R̂_b from b-bit OPH signatures: the OPH-aware collision fraction,
+    then the same (C1, C2) debiasing as the k-permutation estimator."""
+    return estimate_resemblance(empirical_p_hat_oph(sig1_b, sig2_b),
+                                f1, f2, D, b)

@@ -16,6 +16,12 @@ no unsigned 64-bit product, so the 4U step forms ``acc * t + coef`` as a
 (hi, lo) pair from two 48-bit partial products; the CUDA kernels use native
 ``unsigned long long`` instead.  Both give the uint32 results of
 ``repro.core.hashing`` bit for bit, wrap-arounds included.
+
+4U reduces each Horner step by ``BitMod`` or, with ``use_bitmod=False``
+(Table 2's "4U (Mod)" row), by a true modulo of the 64-bit value.  The two
+agree for coefficients < p and indices < 2^31, the family's domain;
+outside it ``BitMod``'s first fold overflows and they part, in the port
+exactly as in the reference.
 """
 
 from __future__ import annotations
@@ -58,15 +64,10 @@ def hash2u_apply(t: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor, s: int,
     return v & ((1 << s) - 1)
 
 
-def horner_step(acc: torch.Tensor, t: torch.Tensor,
-                coef: torch.Tensor) -> torch.Tensor:
-    """One 4U Horner step ``(acc * t + coef)`` reduced by ``BitMod``.
-
-    The 64-bit value is kept modulo 2^64 as (hi, lo) exactly as the
-    reference's ``umul32_wide`` + ``add64`` do, then folded twice and
-    conditionally reduced (``mod_mersenne31``); every uint32 wrap of the
-    reference is reproduced by the ``& M32`` masks.
-    """
+def mul_add64(acc: torch.Tensor, t: torch.Tensor, coef: torch.Tensor):
+    """``acc * t + coef`` modulo 2^64 as a (hi, lo) pair of uint32 values,
+    exactly as the reference's ``umul32_wide`` + ``add64`` form it; every
+    uint32 wrap of the reference is reproduced by the ``& M32`` masks."""
     t_lo, t_hi = t & 0xFFFF, t >> 16
     p0 = acc * t_lo                           # < 2^48
     p1 = acc * t_hi                           # < 2^48
@@ -74,8 +75,16 @@ def horner_step(acc: torch.Tensor, t: torch.Tensor,
     hi = (low >> 32) + (p1 >> 16)
     lo = (low & M32) + coef
     hi = (hi + (lo >> 32)) & M32
-    lo = lo & M32
-    return mod_mersenne31(hi, lo)
+    return hi, lo & M32
+
+
+def horner_step(acc: torch.Tensor, t: torch.Tensor, coef: torch.Tensor,
+                use_bitmod: bool = True) -> torch.Tensor:
+    """One 4U Horner step ``(acc * t + coef)`` reduced by ``BitMod`` (two
+    folds and a conditional subtract) or, ``use_bitmod=False``, by
+    ``_slow_mod_mersenne31``."""
+    hi, lo = mul_add64(acc, t, coef)
+    return mod_mersenne31(hi, lo) if use_bitmod else _slow_mod_mersenne31(hi, lo)
 
 
 def mod_mersenne31(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -87,14 +96,24 @@ def mod_mersenne31(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return torch.where(v2 >= p, v2 - p, v2)
 
 
+def _slow_mod_mersenne31(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """``(hi * 2^32 + lo) mod p`` for any uint32 pair, the "Mod" baseline:
+    ``((hi mod p) * (2^32 mod p) + lo mod p) mod p``; int64 in/out."""
+    p = MERSENNE_P
+    term = (hi % p) * (2**32 % p) % p         # 2^32 mod p == 2
+    v = term + lo % p                         # < 2p
+    return torch.where(v >= p, v - p, v)
+
+
 def hash4u_apply(t: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
-                 a3: torch.Tensor, a4: torch.Tensor, s: int) -> torch.Tensor:
+                 a3: torch.Tensor, a4: torch.Tensor, s: int,
+                 use_bitmod: bool = True) -> torch.Tensor:
     """``((a4 t^3 + a3 t^2 + a2 t + a1) mod p) mod 2^s`` by Horner's rule;
     broadcasting, int64 in/out."""
     t = widen(t)
     acc = torch.broadcast_to(widen(a4), torch.broadcast_shapes(t.shape, a4.shape))
     for coef in (a3, a2, a1):
-        acc = horner_step(acc, t, widen(coef))
+        acc = horner_step(acc, t, widen(coef), use_bitmod)
     if s < 31:
         return acc & ((1 << s) - 1)
     return acc % MERSENNE_P
@@ -157,10 +176,14 @@ class Hash2U:
 @dataclasses.dataclass(frozen=True)
 class Hash4U:
     """4-universal polynomial family over p = 2^31 - 1 (Eq. 9 + §3.4),
-    every ``mod p`` done by ``BitMod``, the final ``mod 2^s`` by a mask."""
+    every ``mod p`` done by ``BitMod`` (``use_bitmod=False``: by a true
+    modulo, the "4U (Mod)" row of Table 2), the final ``mod 2^s`` by a
+    mask.  The CUDA kernel computes the ``BitMod`` form; the Mod form runs
+    as plain PyTorch, as the reference runs it as jnp."""
 
     a: torch.Tensor    # (4, k) int32, coefficients < p
     s: int             # D = 2^s, s <= 31
+    use_bitmod: bool = True
 
     @property
     def k(self) -> int:
@@ -175,55 +198,94 @@ class Hash4U:
         return self.a.device
 
     @staticmethod
-    def from_numpy(a, s: int, device: DeviceLike = None) -> "Hash4U":
+    def from_numpy(a, s: int, device: DeviceLike = None, *,
+                   use_bitmod: bool = True) -> "Hash4U":
         if not 1 <= s <= 31:
             raise ValueError(f"4U over p=2^31-1 needs s <= 31, got {s}")
-        return Hash4U(a=from_numpy(a, resolve_device(device)), s=s)
+        return Hash4U(a=from_numpy(a, resolve_device(device)), s=s,
+                      use_bitmod=use_bitmod)
 
     @staticmethod
-    def create(k: int, s: int, *, generator: Optional[torch.Generator] = None,
+    def create(k: int, s: int, use_bitmod: bool = True, *,
+               generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> "Hash4U":
         a = _bits(generator, (4, k)) % MERSENNE_P
-        return Hash4U.from_numpy(a, s, device)
+        return Hash4U.from_numpy(a, s, device, use_bitmod=use_bitmod)
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         """``t.shape + (k,)`` int64 values in [0, 2^s)."""
         return hash4u_apply(t[..., None], self.a[0], self.a[1], self.a[2],
-                            self.a[3], self.s)
+                            self.a[3], self.s, self.use_bitmod)
 
 
 @dataclasses.dataclass(frozen=True)
 class PermutationFamily:
     """k independent random permutations of [0, D): O(k * D) storage, the
-    paper's storage problem -- small D only (tests, the gold standard)."""
+    paper's case against them at web scale.
 
-    perms: torch.Tensor   # (k, D) int32; perms[j, t] = pi_j(t)
+    The table is laid out (D, k): row t holds pi_1(t) .. pi_k(t), so the k
+    values one nonzero needs are one contiguous row of 4k bytes (at k = 200,
+    D = 2^24 a (k, D) layout would read them 64 MiB apart, a 32-byte sector
+    each).  ``perms`` is the reference's (k, D) view of the same storage,
+    not a copy.
+    """
+
+    table: torch.Tensor   # (D, k) int32; table[t, j] = pi_j(t)
+
+    @property
+    def perms(self) -> torch.Tensor:
+        """(k, D) view: ``perms[j, t] = pi_j(t)``, as the reference holds it."""
+        return self.table.t()
 
     @property
     def k(self) -> int:
-        return self.perms.shape[0]
+        return self.table.shape[1]
 
     @property
     def D(self) -> int:
-        return self.perms.shape[1]
+        return self.table.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.perms.device
+        return self.table.device
 
     @staticmethod
     def from_numpy(perms, device: DeviceLike = None) -> "PermutationFamily":
-        p = torch.from_numpy(np.asarray(perms, np.int32).copy())
-        return PermutationFamily(perms=p.to(resolve_device(device)))
+        """From the reference's (k, D) array."""
+        p = np.array(np.asarray(perms, np.int32).T, order="C")
+        return PermutationFamily(table=torch.from_numpy(p).to(resolve_device(device)))
 
     @staticmethod
     def create(k: int, D: int, *, generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> "PermutationFamily":
-        perms = torch.stack([torch.randperm(D, generator=generator)
-                             for _ in range(k)]).to(torch.int32)
-        return PermutationFamily(perms=perms.to(resolve_device(device)))
+        """One ``torch.randperm`` per function, drawn on the generator's
+        device (on ``device`` when no generator is given) and written into
+        its column of the (D, k) table."""
+        dev = resolve_device(device)
+        draw_on = generator.device if generator is not None else dev
+        table = torch.empty((D, k), dtype=torch.int32, device=dev)
+        for j in range(k):
+            table[:, j] = torch.randperm(D, generator=generator,
+                                         device=draw_on).to(dev)
+        return PermutationFamily(table=table)
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         """``t.shape + (k,)`` int64 permuted values."""
-        out = self.perms[:, t.to(torch.int64)]          # (k, ...)
-        return torch.movedim(out, 0, -1).to(torch.int64)
+        return self.table[t.to(torch.int64)].to(torch.int64)
+
+    def storage_bytes(self) -> int:
+        return self.k * self.D * 4
+
+
+def family_storage_bytes(family) -> int:
+    """Coefficient storage -- the paper's comparison of the families."""
+    if isinstance(family, PermutationFamily):
+        return family.storage_bytes()
+    if isinstance(family, Hash2U):
+        return 2 * family.k * 4
+    if isinstance(family, Hash4U):
+        return 4 * family.k * 4
+    base = getattr(family, "base", None)   # OPH: ONE function's coefficients
+    if base is not None:
+        return family_storage_bytes(base)
+    raise TypeError(type(family))

@@ -236,3 +236,29 @@ def densify_fast(sig: torch.Tensor, max_rounds: int = 0) -> torch.Tensor:
         t += 1
     out = torch.where(filled, out, _first_nonempty_fallback(v, nonempty))
     return narrow(out)
+
+
+# ---------------------------------------------------------------------------
+# Estimators and the cost model
+# ---------------------------------------------------------------------------
+
+def oph_match_fraction(sig1: torch.Tensor, sig2: torch.Tensor) -> torch.Tensor:
+    """Li-Owen-Zhang estimator R^ = N_match / (k - N_jointly_empty) on
+    sentinel-coded signatures; on densified ones (no EMPTY bins) the plain
+    Eq. (2) match fraction."""
+    both_empty = (widen(sig1) == EMPTY) & (widen(sig2) == EMPTY)
+    match = (sig1 == sig2) & ~both_empty
+    n_match = match.to(torch.float32).sum(dim=-1)
+    denom = sig1.shape[-1] - both_empty.to(torch.float32).sum(dim=-1)
+    return n_match / torch.clamp(denom, min=1.0)
+
+
+def hash_evaluations(n: int, avg_nnz: float, k: int, scheme: str) -> float:
+    """Analytic hash-evaluation count of preprocessing (the §3 cost model):
+    k-pass minwise hashing evaluates k functions per (set, nonzero), OPH
+    one; the ratio is exactly k."""
+    if scheme == "minhash":
+        return n * avg_nnz * k
+    if scheme == "oph":
+        return n * avg_nnz
+    raise ValueError(f"scheme must be 'minhash' or 'oph', got {scheme!r}")

@@ -50,6 +50,17 @@ class SparseBatch:
         return b
 
 
+def pad_to_multiple(x: np.ndarray, multiple: int, axis: int, value=0) -> np.ndarray:
+    """``x`` padded with ``value`` along ``axis`` to a multiple of ``multiple``."""
+    size = x.shape[axis]
+    target = ((size + multiple - 1) // multiple) * multiple
+    if target == size:
+        return x
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, target - size)
+    return np.pad(x, pad, constant_values=value)
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy -> tensor on ``device``; pinned + non_blocking for CUDA."""
     t = torch.from_numpy(arr)
@@ -78,3 +89,25 @@ def from_lists(sets: Sequence[np.ndarray], labels: Optional[np.ndarray] = None,
         np.ascontiguousarray(labels, np.float32), dev)
     return SparseBatch(indices=to_device(idx, dev), mask=to_device(msk, dev),
                        labels=lab)
+
+
+def to_dense(batch: SparseBatch, D: int) -> torch.Tensor:
+    """Dense 0/1 matrix (n, D) float32.  Tests / small D only."""
+    n, nnz = batch.indices.shape
+    row = torch.arange(n, device=batch.device)[:, None]
+    flat = (row * D + batch.indices.to(torch.int64)).reshape(-1)
+    out = torch.zeros(n * D, dtype=torch.float32, device=batch.device)
+    out.index_add_(0, flat, batch.mask.to(torch.float32).reshape(-1))
+    return torch.clamp(out.reshape(n, D), max=1.0)
+
+
+def slice_batch(batch: SparseBatch, start: int, size: int) -> SparseBatch:
+    """Rows [start, start + size) of ``batch`` (views, no copy); as the
+    reference's ``dynamic_slice``, a start past ``n - size`` is pulled
+    back so the slice keeps ``size`` rows."""
+    start = max(0, min(start, batch.n - size))
+    return SparseBatch(
+        indices=batch.indices[start:start + size],
+        mask=batch.mask[start:start + size],
+        labels=None if batch.labels is None
+        else batch.labels[start:start + size])

@@ -4,7 +4,8 @@ the same ``DatasetSpec``.
 
 Each class owns ``n_prototypes`` topic sets; an example copies a fraction
 ``overlap`` of one prototype and adds fresh random features, so same-class
-examples have high resemblance and cross-class examples low.
+examples have high resemblance and cross-class examples low.  Also the
+Appendix-A word-pair sets (two sets with a prescribed exact resemblance).
 """
 
 from __future__ import annotations
@@ -72,3 +73,34 @@ def generate(spec: DatasetSpec, n: Optional[int] = None, *,
     (tr, ytr), (te, yte) = generate_sets(spec, n)
     return (from_lists(tr, ytr, device=device),
             from_lists(te, yte, device=device))
+
+
+def word_pair_sets(D: int, f1: int, f2: int, R: float, seed: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two sets over [0, D) with |S1|=f1, |S2|=f2 and resemblance ~= R:
+    |S1 ∩ S2| = a from R = a / (f1 + f2 - a), i.e. a = R(f1+f2)/(1+R).
+    Mirrors the Appendix-A word-pair data (Table 5)."""
+    a = int(round(R * (f1 + f2) / (1.0 + R)))
+    a = min(a, f1, f2)
+    rng = np.random.default_rng(seed)
+    universe = rng.choice(D, size=f1 + f2 - a, replace=False)
+    shared = universe[:a]
+    only1 = universe[a:f1]
+    only2 = universe[f1:f1 + f2 - a]
+    s1 = np.sort(np.concatenate([shared, only1]))
+    s2 = np.sort(np.concatenate([shared, only2]))
+    return s1.astype(np.int64), s2.astype(np.int64)
+
+
+# Appendix-A Table 5 word pairs: (name, f1, f2, R)
+TABLE5_PAIRS = [
+    ("KONG-HONG", 948, 940, 0.925),
+    ("RIGHTS-RESERVED", 12234, 11272, 0.877),
+    ("OF-AND", 37339, 36289, 0.771),
+    ("GAMBIA-KIRIBATI", 206, 186, 0.712),
+    ("SAN-FRANCISCO", 3194, 1651, 0.476),
+    ("CREDIT-CARD", 2999, 2697, 0.285),
+    ("TIME-JOB", 37339, 36289, 0.128),
+    ("LOW-PAY", 2936, 2828, 0.112),
+    ("A-TEST", 39063, 2278, 0.052),
+]

@@ -30,13 +30,19 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-for name in names:
+# the batch-learning slice's modules, which the walk must have reached
+required = ["repro_torch." + m for m in (
+    "core.minhash", "core.vw", "core.lsh", "optim", "optim.base",
+    "optim.schedules", "optim.optimizers", "train.trainer",
+    "train.checkpoint", "train.fault", "kernels.ops", "tree")]
+for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+missing = sorted(set(required) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
 
 
