@@ -32,7 +32,17 @@ versions, and runs the ``repro_torch.launch.serve --arch wide-deep
 ``SearchServer``.  Phase 8 drives the paper's batch-learning path on
 phase 3's rows: permutations vs 2U vs 4U (Fig. 4) through
 ``minhash_signatures`` and ``Trainer``, a restarted fit, the VW baseline,
-``online_epochs``, offline dedup and the Appendix-A estimator.
+``online_epochs``, offline dedup and the Appendix-A estimator.  Phase 9
+drives the rest of the recsys family at its published widths: AutoInt
+(39 fields x 1,000,000 x d = 16, with the frontend), DIN and MIND in all
+four cells (``serve_p99``, ``serve_bulk``, ``retrieval_cand`` at
+1,000,000 candidates in chunks, ``train_batch`` at 65,536 rows with the
+fused Adafactor step) and Wide & Deep in the last two, holding ``sigbag``
+at d = 16 in both designs and ``minhash2u`` at AutoInt's frontend
+bit-exact against their plain versions, AutoInt's scores against the
+plain frontend, DIN's and MIND's against the same code in float64, the
+frontend table's gradient against autograd through ``sigbag_plain``, a
+restarted DIN fit against the unfailed one, and both launchers.
 Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
@@ -205,6 +215,27 @@ DEDUP_BANDS, DEDUP_ROWS, DEDUP_THRESHOLD = 50, 4, 0.8
 # 20 repetitions, as one 2U family of 20 x 256 functions for each b
 APPX_D_BITS, APPX_K, APPX_REPS, APPX_BITS = 18, 256, 20, (1, 2, 4)
 
+# The rest of the recsys family (phase 9): AutoInt, DIN and MIND at their
+# published widths in all four cells; Wide & Deep (phase 6's CONFIG) in
+# retrieval_cand and train_batch
+FAMILY = ("autoint", "din", "mind", "wide-deep")
+FAMILY_REQUESTS, FAMILY_BULK = 32, 3     # serve_p99, serve_bulk requests
+RETRIEVAL_QUERIES = 3                    # timed, after one warm-up query
+RETRIEVAL_CHECK = 512                    # candidates held to explicit rows
+TRAIN_ROWS, TRAIN_STEPS = 65_536, 20
+RESTART_STEPS, RESTART_FAIL_AT, RESTART_EVERY = 6, 3, 2   # DIN, restarted
+CLI_TRAIN_STEPS = 5
+# float32 against the same code in float64 (DIN, MIND): rtol, and an atol
+# of this share of the largest |logit|.  Products of <= 200 terms in
+# float32 carry ~1e-6 relative rounding; TF32 is off in the phase.
+F64_RTOL = F64_ATOL_SHARE = 1e-4
+# the same rows scored in a 65,536-candidate chunk and as a 512-row batch:
+# cuBLAS may pick another algorithm for each shape
+CHUNK_RTOL = CHUNK_ATOL_SHARE = 1e-5
+# sigbag's table gradient by the scatter-add against autograd through
+# sigbag_plain: both sum the same terms, in other orders (atomics)
+GRAD_ATOL_SHARE = 1e-5
+
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
     "oph4u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:178"),
@@ -259,6 +290,33 @@ def graph_ms(fn, torch, loop: int = 1) -> float:
     torch.cuda.synchronize()
     return statistics.median(cuda_ms(graph.replay, torch)
                              for _ in range(REPS)) / loop
+
+
+def device_breakdown(fn, torch, top: int = 4) -> str:
+    """One call of ``fn`` under ``torch.profiler``: wall ms (host clock to
+    a synchronize), the kernels' summed device ms and the device's busy
+    share of the wall, and the ``top`` kernels by device time.  "not
+    measured" where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    if not kernels:
+        return f"wall {wall:.2f} ms; device time not measured (no kernels)"
+    busy = sum(k[0] for k in kernels)
+    return (f"wall {wall:.2f} ms, kernels {busy:.2f} ms ({busy / wall:.0%} "
+            f"busy, {sum(k[1] for k in kernels)} launches); top: "
+            + "; ".join(f"{name[:48]} x{n} {ms:.2f} ms"
+                        for ms, n, name in kernels[:top]))
 
 
 def max_abs_err(got, want) -> int:
@@ -617,6 +675,10 @@ def check_match_odd_shapes(torch, dev) -> int:
 
 
 def main() -> int:
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms
+    # (phase 9's restarted DIN fit) only with a fixed workspace; it must be
+    # set before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -921,6 +983,10 @@ def run(torch) -> int:
     batch_launches = batch_learning(torch, dev, train_sets, y_train, test)
     for name, n_launch in batch_launches.items():
         rows[name]["launches"] += n_launch
+
+    # -- phase 9: AutoInt, DIN, MIND and Wide & Deep in every cell -------
+    for name, n_launch in recsys_family(torch, dev).items():
+        rows[name]["launches"] += n_launch
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1200,6 +1266,27 @@ def retrieval(torch, dev, n_docs: int) -> dict:
     return row, ctx
 
 
+def plain_frontend_model():
+    """``RecsysModel`` with its frontend through the plain versions."""
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels.sigbag import sigbag_plain
+    from repro_torch.models.recsys import RecsysModel
+
+    class PlainFrontend(RecsysModel):
+        """The same model, its frontend through the plain versions."""
+
+        def signatures(self, set_ids, set_counts):
+            return kmin.minhash2u_plain(set_ids, set_counts.reshape(-1),
+                                        self.a1, self.a2,
+                                        s=self.cfg.minhash_s,
+                                        b=self.cfg.minhash_b)
+
+        def signature_bag(self, sig, table):
+            return sigbag_plain(sig, table)
+
+    return PlainFrontend
+
+
 def recsys_serving(torch, dev) -> tuple:
     """Phase 6: the published Wide & Deep served on the card, cells
     ``serve_p99`` and ``serve_bulk``; returns the ``sigbag`` row of the
@@ -1211,22 +1298,10 @@ def recsys_serving(torch, dev) -> tuple:
                                             sigbag_plan_cuda)
     from repro_torch.launch import serve
     from repro_torch.launch.steps import build_cell, init_inputs
-    from repro_torch.models.recsys import RecsysModel
 
     kern, mh = sigbag_cuda, kmin.minhash2u_cuda
     t_phase = time.perf_counter()
-
-    class PlainFrontend(RecsysModel):
-        """The same model, its frontend through the plain versions."""
-
-        def signatures(self, set_ids, set_counts):
-            return kmin.minhash2u_plain(set_ids, set_counts.reshape(-1),
-                                        self.a1, self.a2,
-                                        s=self.cfg.minhash_s,
-                                        b=self.cfg.minhash_b)
-
-        def signature_bag(self, sig):
-            return sigbag_plain(sig, self.minhash_table)
+    PlainFrontend = plain_frontend_model()
 
     # -- build the full-width model straight on the card ------------------
     prog = build_cell("wide-deep", "serve_p99", smoke=False, device=dev)
@@ -1359,14 +1434,16 @@ def recsys_serving(torch, dev) -> tuple:
     # device time of one request, with and without host gaps
     b0 = batches[0]
     frontend = lambda: model.signature_bag(
-        model.signatures(b0["set_ids"], b0["set_counts"]))
+        model.signatures(b0["set_ids"], b0["set_counts"]),
+        model.minhash_table)
     step_ms = graph_ms(lambda: prog.step(model, b0), torch)
     front_ms = graph_ms(frontend, torch)
     step_ev = statistics.median(cuda_ms(lambda: prog.step(model, b_), torch)
                                 for b_ in batches)
     front_ev = statistics.median(cuda_ms(
         lambda: model.signature_bag(model.signatures(b_["set_ids"],
-                                                     b_["set_counts"])),
+                                                     b_["set_counts"]),
+                                    model.minhash_table),
         torch) for b_ in batches)
     log(f"[serve wide-deep] {N_REQUESTS} requests x batch {n_req}: p50 "
         f"{p50:.3f} ms, p99 {p99:.3f} ms, max {lat[-1]:.3f} ms (host clock "
@@ -1422,10 +1499,12 @@ def recsys_serving(torch, dev) -> tuple:
                                 for b_ in bulk)
     front_ms = statistics.median(cuda_ms(
         lambda: model.signature_bag(model.signatures(b_["set_ids"],
-                                                     b_["set_counts"])),
+                                                     b_["set_counts"]),
+                                    model.minhash_table),
         torch) for b_ in bulk)
-    bag_ms = statistics.median(cuda_ms(lambda: model.signature_bag(sig),
-                                       torch) for _ in range(REPS))
+    bag_ms = statistics.median(cuda_ms(
+        lambda: model.signature_bag(sig, model.minhash_table), torch)
+        for _ in range(REPS))
     want = bprog.step(plain_model, b0)
     if not torch.equal(bprog.step(model, b0), want):
         raise AssertionError("serve_bulk scores: kernels != plain versions")
@@ -2101,6 +2180,397 @@ def batch_learning(torch, dev, train_sets, y_train, test) -> dict:
         f"== the calls made; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated():,} B ({held:,} B held before "
         f"the phase)")
+    return launches
+
+
+def recsys_family(torch, dev) -> dict:
+    """Phase 9: AutoInt, DIN and MIND at their published widths in all
+    four recsys cells, and Wide & Deep in ``retrieval_cand`` and
+    ``train_batch``: ``sigbag`` at AutoInt's d = 16 in both designs and
+    ``minhash2u`` at its frontend against their plain versions, served
+    requests, 1,000,000 candidates scored in chunks, 20 fused Adafactor
+    steps an arch, the frontend table's gradient, a restarted DIN fit and
+    both launchers.  Returns the ``minhash2u`` / ``sigbag`` launches of
+    the paths it drives."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels.sigbag import (sigbag_cuda, sigbag_plain,
+                                            sigbag_plan_cuda)
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import build_cell, init_inputs
+    from repro_torch.models.recsys import (RETRIEVAL_CHUNK, RecsysModel,
+                                           recsys_logits, recsys_loss)
+    from repro_torch.train import TrainState, Trainer
+    from repro_torch.tree import path_leaves, tree_map
+
+    kern, mh = sigbag_cuda, kmin.minhash2u_cuda
+    launches = {"minhash2u": 0, "sigbag": 0}
+    PlainFrontend = plain_frontend_model()
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 products
+    held = torch.cuda.memory_allocated()
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def path(fn, per_call: int, calls: int, label: str):
+        """``fn()`` with every launch count at 0 before it; the frontend
+        kernels must launch ``per_call`` times for each of ``calls``."""
+        kern.launches = mh.launches = 0
+        out = fn()
+        got = {"minhash2u": mh.launches, "sigbag": kern.launches}
+        if any(v != per_call * calls for v in got.values()):
+            raise AssertionError(f"{label}: launches {got}, want "
+                                 f"{per_call} x {calls} each")
+        for name, count in got.items():
+            launches[name] += count
+        return out
+
+    def rows_of(batch):
+        """Rows of a batch of inputs (or of input specs)."""
+        return next(iter(batch.values())).shape[0]
+
+    def frontend_kernels(model, cfg):
+        """sigbag at d = 16 (both designs) and minhash2u at the frontend's
+        shapes, bit-exact against the plain versions; timed."""
+        table = model.minhash_table.detach()
+        k, two_b, d = table.shape
+        gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+        weight = table.reshape(k * two_b, d)
+        for n in (512, TRAIN_ROWS, BULK_ROWS):
+            tok = torch.randint(0, two_b, (n, k), dtype=torch.int32,
+                                generator=gen, device=dev)
+            plan, sms = sigbag_plan_cuda(tok, table)
+            if plan.staged != (n == BULK_ROWS):
+                raise AssertionError(f"sigbag d={d} n={n} plans {plan} on "
+                                     f"{sms} SMs")
+            if not torch.equal(kern(tok, table), sigbag_plain(tok, table)):
+                raise AssertionError(f"sigbag d={d} n={n}: kernel != plain")
+            flat = tok.to(torch.int64) + torch.arange(k, device=dev) * two_b
+            bag = lambda: F.embedding_bag(flat, weight, mode="sum")
+            ms = graph_ms(lambda: kern(tok, table), torch, SIGBAG_LOOP)
+            if n == 512:
+                lib_ms = graph_ms(bag, torch, SIGBAG_LOOP)
+                how = f"a CUDA graph of {SIGBAG_LOOP}, median of {REPS}"
+            else:
+                ev_ms = median_ms(lambda: kern(tok, table), torch)
+                lib_ms = median_ms(bag, torch)
+                how = (f"a CUDA graph of {SIGBAG_LOOP}, median of {REPS}; "
+                       f"one launch by events {ev_ms:.4f} ms")
+            plain_ms = cuda_ms(lambda: sigbag_plain(tok, table), torch)
+            b_ms, b_by, rows_read = sigbag_bound(torch, tok, table)
+            design = (f"staged, {plan.rows} rows a block, {plan.stages} "
+                      f"stages" if plan.staged else "direct gather")
+            log(f"[kernel] sigbag autoint n={n} k={k} 2^b={two_b} d={d} "
+                f"float32 ({design}): {ms:.4f} ms ({how}), bound "
+                f"{b_ms:.4f} ms ({b_by}; {rows_read} of {k * two_b} rows "
+                f"touched), plain {plain_ms:.2f} ms, F.embedding_bag "
+                f"{lib_ms:.4f} ms; bit-exact")
+        for cell in ("serve_p99", "train_batch"):
+            cprog = build_cell("autoint", cell, smoke=False, device=dev)
+            b = init_inputs(cprog, gen)
+            ids, cnt = b["set_ids"], b["set_counts"]
+            args = (ids, cnt, model.a1, model.a2)
+            kw = dict(s=cfg.minhash_s, b=cfg.minhash_b)
+            err = max_abs_err(mh(*args, **kw),
+                              kmin.minhash2u_plain(*args, **kw))
+            if err:
+                raise AssertionError(f"minhash2u autoint {cell}: kernel != "
+                                     f"plain (max |err| {err})")
+            n, nz = ids.shape[0], int(cnt.sum())
+            ms = graph_ms(lambda: mh(*args, **kw), torch, SIGBAG_LOOP)
+            plain_ms = cuda_ms(lambda: kmin.minhash2u_plain(*args, **kw),
+                               torch)
+            b_ms, b_by = bound(minhash_bytes(nz, n, k, False),
+                               minhash_ops(nz, n, k, False, cfg.minhash_b,
+                                           False))
+            log(f"[kernel] minhash2u autoint frontend n={n} nnz="
+                f"{ids.shape[1]} (nonzeros {nz}) k={k} s={cfg.minhash_s} "
+                f"b={cfg.minhash_b}: {ms:.4f} ms (a CUDA graph of "
+                f"{SIGBAG_LOOP}, median of {REPS}), bound {b_ms:.4f} ms "
+                f"({b_by}), plain {plain_ms:.2f} ms; bit-exact")
+
+    def served(arch, model, cfg, frontend):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        for cell, n_req in (("serve_p99", FAMILY_REQUESTS),
+                            ("serve_bulk", FAMILY_BULK)):
+            cprog = build_cell(arch, cell, smoke=False, device=dev)
+            cprog.step(model, init_inputs(cprog, gen))           # warm-up
+            torch.cuda.synchronize()
+            reqs = [init_inputs(cprog, gen) for _ in range(n_req)]
+
+            def serve_all():
+                lat = []
+                for batch in reqs:
+                    t0 = time.perf_counter()
+                    scores = cprog.step(model, batch)
+                    lat.append(sync_ms(t0))
+                return scores, lat
+
+            scores, lat = path(serve_all, frontend, n_req, f"{arch} {cell}")
+            n = rows_of(reqs[0])
+            if scores.shape != (n,) or not bool(
+                    ((scores > 0) & (scores < 1)).all()):
+                raise AssertionError(f"{arch} {cell}: scores "
+                                     f"{tuple(scores.shape)} not in (0, 1)")
+            if frontend:
+                plain = PlainFrontend(cfg, model.params(), model.a1, model.a2)
+                if not torch.equal(cprog.step(plain, reqs[0]),
+                                   cprog.step(model, reqs[0])):
+                    raise AssertionError(f"{arch} {cell}: scores through the "
+                                         "kernels != the plain versions'")
+                check = "== through the plain versions, bit for bit"
+            elif cell == "serve_p99":
+                m64 = RecsysModel(cfg, tree_map(lambda t: t.detach().double(),
+                                                model.params()))
+                with torch.inference_mode():
+                    z32 = recsys_logits(model, reqs[0]).double()
+                    z64 = recsys_logits(m64, reqs[0])
+                err = float((z32 - z64).abs().max())
+                top = float(z64.abs().max())
+                if not bool(((z32 - z64).abs() <= F64_RTOL * z64.abs()
+                             + F64_ATOL_SHARE * top).all()):
+                    raise AssertionError(f"{arch}: float32 logits != float64"
+                                         f" (max |err| {err:.3e}, max "
+                                         f"|logit| {top:.3e})")
+                del m64
+                check = (f"logits == float64 within rtol {F64_RTOL} / atol "
+                         f"{F64_ATOL_SHARE} x max (max |err| {err:.3e} at "
+                         f"max |logit| {top:.3e})")
+            else:
+                check = "scores in (0, 1)"
+            lat.sort()
+            timing = (f"p50 {lat[len(lat) // 2]:.3f} ms, p99 "
+                      f"{lat[-(-len(lat) * 99 // 100) - 1]:.3f} ms"
+                      if n_req > FAMILY_BULK
+                      else ", ".join(f"{x:.1f}" for x in lat) + " ms")
+            log(f"[family {arch} {cell}] {n_req} requests x batch {n}: "
+                f"{timing} (host clock to a synchronize), "
+                f"{n * n_req / (sum(lat) / 1e3):.0f} rows/s; launches a "
+                f"request: {frontend} minhash2u + {frontend} sigbag; {check}")
+            log(f"[family {arch} {cell}] profile of a request: "
+                + device_breakdown(lambda: cprog.step(model, reqs[0]),
+                                   torch))
+
+    def retrieval(arch, model, cfg, frontend):
+        rprog = build_cell(arch, "retrieval_cand", smoke=False, device=dev)
+        n_cand = rprog.n_candidates
+        chunks = -(-n_cand // RETRIEVAL_CHUNK)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+        queries = [init_inputs(rprog, gen)
+                   for _ in range(RETRIEVAL_QUERIES + 1)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rprog.step(model, queries[0])                            # warm-up
+
+        def run():
+            outs, lat = [], []
+            for q in queries[1:]:
+                t0 = time.perf_counter()
+                outs.append(rprog.step(model, q))
+                lat.append(sync_ms(t0))
+            return outs, lat
+
+        outs, lat = path(run, frontend * chunks, RETRIEVAL_QUERIES,
+                         f"{arch} retrieval_cand")
+        peak = torch.cuda.max_memory_allocated()
+        got = outs[-1]
+        if got.shape != (n_cand,) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{arch} retrieval: {tuple(got.shape)} or "
+                                 "not finite")
+        q = queries[-1]
+        m = min(RETRIEVAL_CHECK, n_cand)
+        rows = {key: v.expand(m, *v.shape[1:]).contiguous()
+                for key, v in q.items()}
+        cand = torch.arange(m, dtype=torch.int32, device=dev)
+        if "target_id" in rows:
+            rows["target_id"] = cand % cfg.item_vocab
+        else:
+            rows["field_ids"][:, -1] = cand % cfg.vocab
+        with torch.inference_mode():
+            want = recsys_logits(model, rows)
+        diff = (got[:m] - want).abs()
+        top = float(want.abs().max())
+        if not bool((diff <= CHUNK_RTOL * want.abs()
+                     + CHUNK_ATOL_SHARE * top).all()):
+            raise AssertionError(f"{arch} retrieval: candidates 0..{m - 1} "
+                                 f"!= the explicit rows (max |err| "
+                                 f"{float(diff.max()):.3e})")
+        log(f"[family {arch} retrieval_cand] {RETRIEVAL_QUERIES} queries x "
+            f"{n_cand:,} candidates in {chunks} chunks of {RETRIEVAL_CHUNK:,}"
+            f": {', '.join(f'{x:.1f}' for x in lat)} ms (host clock to a "
+            f"synchronize), {n_cand * RETRIEVAL_QUERIES / (sum(lat) / 1e3):,.0f}"
+            f" candidates/s; max_memory_allocated {peak:,} B ({peak - base:,}"
+            f" B above the model); candidates 0..{m - 1} == the explicit "
+            f"rows within rtol {CHUNK_RTOL} (max |err| {float(diff.max()):.3e})"
+            f"; launches a query: {frontend * chunks} minhash2u + "
+            f"{frontend * chunks} sigbag")
+        log(f"[family {arch} retrieval_cand] profile of a query: "
+            + device_breakdown(lambda: rprog.step(model, q), torch))
+
+    def training(arch, model, cfg, frontend):
+        tprog = build_cell(arch, "train_batch", smoke=False, device=dev)
+        params = model.params()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+        batches = [init_inputs(tprog, gen) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            p, o, losses, ms = params, tprog.optimizer.init(params), [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                p, o, loss = tprog.step(model, p, o, b)
+                ms.append(sync_ms(t0))
+                losses.append(float(loss))
+            return p, o, losses, ms
+
+        new, o_last, losses, ms = path(run, frontend, TRAIN_STEPS,
+                                       f"{arch} train_batch")
+        peak = torch.cuda.max_memory_allocated()
+        if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+            raise AssertionError(f"{arch} train: losses {losses}")
+        still = [key for (key, a), (_, b) in zip(path_leaves(params),
+                                                 path_leaves(new))
+                 if torch.equal(a, b)]
+        if still:
+            raise AssertionError(f"{arch} train: {still} did not change")
+        log(f"[family {arch} train_batch] {TRAIN_STEPS} fused Adafactor "
+            f"steps x {rows_of(batches[0]):,} rows: first {ms[0]:.1f} ms, "
+            f"then {statistics.median(ms[1:]):.2f} ms a step (median, host "
+            f"clock to a synchronize); loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; every parameter leaf changed; "
+            f"max_memory_allocated {peak:,} B ({peak - base:,} B above the "
+            f"model); launches a step: {frontend} minhash2u + {frontend} "
+            f"sigbag")
+        log(f"[family {arch} train_batch] profile of a step: "
+            + device_breakdown(lambda: tprog.step(model, new, o_last,
+                                                  batches[0]), torch))
+        del new, o_last
+        if frontend:
+            b = batches[0]
+
+            def table_grad(m):
+                live = tree_map(lambda t: t.detach().requires_grad_(True),
+                                m.params())
+                loss = recsys_loss(m, b, live)
+                return torch.autograd.grad(loss, [live["minhash_table"]])[0]
+
+            g_kern = table_grad(model)
+            g_plain = table_grad(PlainFrontend(cfg, model.params(), model.a1,
+                                               model.a2))
+            err = float((g_kern - g_plain).abs().max())
+            top = float(g_plain.abs().max())
+            if not top > 0 or err > GRAD_ATOL_SHARE * top:
+                raise AssertionError(f"{arch}: minhash_table gradient through"
+                                     f" the kernel != through sigbag_plain "
+                                     f"(max |err| {err:.3e} of {top:.3e})")
+            log(f"[family {arch} train_batch] minhash_table gradient at "
+                f"{rows_of(b):,} rows, sigbag kernel + scatter-add backward "
+                f"== autograd through sigbag_plain within "
+                f"{GRAD_ATOL_SHARE} x max (max |err| {err:.3e} of "
+                f"{top:.3e})")
+            del g_kern, g_plain
+        if arch == "din":
+            restart(tprog, model, batches[:RESTART_STEPS])
+
+    def restart(tprog, model, batches):
+        """A DIN fit restarted from its checkpoint after a failure ==
+        the unfailed fit, bit for bit, under deterministic algorithms."""
+        def fit(ckpt_dir=None, fail_at=None):
+            armed = [fail_at is not None]
+
+            def step(st, batch):
+                if armed[0] and int(st.step) == fail_at:
+                    armed[0] = False
+                    raise RuntimeError("injected node failure")
+                p, o, loss = tprog.step(model, st.params, st.opt_state, batch)
+                return (TrainState(params=p, opt_state=o, step=st.step + 1),
+                        {"loss": loss})
+
+            params = model.params()
+            state = TrainState(params=params,
+                               opt_state=tprog.optimizer.init(params),
+                               step=torch.zeros((), dtype=torch.int32,
+                                                device=dev))
+            trainer = Trainer(step, ckpt_dir=ckpt_dir,
+                              ckpt_every=RESTART_EVERY, max_failures=1)
+            return trainer.fit(state, lambda: iter(batches), len(batches))
+
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            unfailed = fit()
+            restarted = fit(str(SMOKE_DIR / "din_ckpt"), RESTART_FAIL_AT)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        same = [torch.equal(a, b) for (_, a), (_, b) in zip(
+            path_leaves(unfailed), path_leaves(restarted))]
+        if int(restarted.step) != len(batches) or not all(same):
+            raise AssertionError("din: restarted fit != the unfailed fit")
+        log(f"[family din restart] {len(batches)} steps, failure injected at "
+            f"step {RESTART_FAIL_AT}, checkpoints every {RESTART_EVERY}: "
+            f"restored and finished; parameters and Adafactor state == the "
+            f"unfailed fit's, bit for bit (deterministic algorithms)")
+
+    for arch in FAMILY:
+        prog = build_cell(arch, "serve_p99", smoke=False, device=dev)
+        cfg = prog.config
+        frontend = int(cfg.use_minhash_frontend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = prog.init_params(torch.Generator(device=dev).manual_seed(
+            SEED + 30))
+        init_ms = sync_ms(t0)
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"[family {arch}] {cfg.interaction}: parameters {nbytes:,} B, "
+            f"drawn on the card in {init_ms:.0f} ms"
+            + (f"; frontend k={cfg.minhash_k} b={cfg.minhash_b} d="
+               f"{cfg.embed_dim}" if frontend else ""))
+        if arch == "autoint":
+            frontend_kernels(model, cfg)
+        if arch != "wide-deep":                 # phase 6 serves it
+            served(arch, model, cfg, frontend)
+        retrieval(arch, model, cfg, frontend)
+        training(arch, model, cfg, frontend)
+        del model
+        torch.cuda.empty_cache()
+
+    # -- the launchers ------------------------------------------------------
+    n_req = rows_of(build_cell("autoint", "serve_p99", smoke=False,
+                               device=dev).input_specs)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "autoint", "--no-smoke", "--requests",
+                    str(CLI_REQUESTS)])
+    line = out.getvalue().strip().splitlines()[-1]
+    if not re.fullmatch(rf"{CLI_REQUESTS} requests, batch {n_req}: "
+                        r"p50=\d+\.\dms p99=\d+\.\dms", line):
+        raise AssertionError(f"serve --arch autoint printed {line!r}")
+    log(f"[family CLI] python -m repro_torch.launch.serve --arch autoint "
+        f"--no-smoke --requests {CLI_REQUESTS}: {line}")
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(["--arch", "din", "--no-smoke", "--steps",
+                        str(CLI_TRAIN_STEPS)])
+    lines = out.getvalue().strip().splitlines()
+    if not (re.fullmatch(r"din/train_batch: [\d,]+ params, "
+                         r"optimizer=fused-adafactor", lines[0])
+            and re.fullmatch(rf"loss: first=\d+\.\d{{4}} last=\d+\.\d{{4}} "
+                             rf"\({CLI_TRAIN_STEPS} steps from step 0, \d+ "
+                             r"stragglers\)", lines[-1])):
+        raise AssertionError(f"train --arch din printed {lines!r}")
+    log(f"[family CLI] python -m repro_torch.launch.train --arch din "
+        f"--no-smoke --steps {CLI_TRAIN_STEPS}: {' | '.join(lines)}")
+    torch.cuda.empty_cache()
+    log(f"[family] {time.perf_counter() - t_phase:.1f} s; launches on the "
+        f"driven paths {launches}; {held:,} B held before the phase")
     return launches
 
 

@@ -1,5 +1,5 @@
-"""Carry hash families, VW hashers, linear models, SGD and training state
-and recsys weights from the JAX package into the port.
+"""Carry hash families, VW hashers, linear models, SGD and training state,
+recsys weights and Adafactor states from the JAX package into the port.
 
 Nothing here imports ``jax`` or ``repro``: a JAX object is read through
 its attributes with ``np.asarray`` (which any array-like supports), so
@@ -117,23 +117,73 @@ def sgd_state_to_numpy(state) -> Dict[str, np.ndarray]:
             "avg_bias": a(state.avg_bias)}
 
 
-def recsys_params_from_jax(params, cfg: RecsysConfig, a1=None, a2=None,
-                           device: DeviceLike = None) -> RecsysModel:
-    """A reference recsys param dict, and its frontend's 2U coefficients
-    (uint32 arrays; the reference draws them per process, so they are
-    handed over), -> the port's model with the same values on ``device``.
-    ``cfg`` is the port's config of the same arch."""
+def _map_nested(fn, x):
+    """``fn`` over the leaves of nested dicts, lists and tuples."""
+    if isinstance(x, dict):
+        return {k: _map_nested(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_nested(fn, v) for v in x)
+    return fn(x)
+
+
+def tree_from_numpy(tree, device: DeviceLike = None, float_dtype=None):
+    """A tree of dicts and lists of array-likes (a reference param dict or
+    optimizer state, or numpy) -> the same tree of tensors on ``device``.
+    Integer leaves keep their type; bfloat16 leaves (numpy's ml_dtypes
+    type) stay bfloat16, read through float32; other float leaves become
+    ``float_dtype`` (float32 by default)."""
     dev = resolve_device(device)
 
-    def t(x):
-        # through float32: numpy has no bfloat16 torch can read
-        return torch.from_numpy(np.array(x, np.float32)).to(
-            device=dev, dtype=cfg.param_dtype)
+    def leaf(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.from_numpy(np.array(a)).to(dev)
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=float_dtype or torch.float32)
 
-    p = {"tables": t(params["tables"]), "wide": t(params["wide"]),
-         "deep": {"w": [t(w) for w in params["deep"]["w"]],
-                  "b": [t(b) for b in params["deep"]["b"]]}}
+    return _map_nested(leaf, tree)
+
+
+def tree_to_numpy(tree):
+    """Either package's tree of dicts and lists of arrays -> numpy, with
+    bfloat16 leaves as float32 (numpy has no bfloat16 of its own)."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        a = np.asarray(x)
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+    return _map_nested(leaf, tree)
+
+
+def adafactor_state_from_numpy(state, device: DeviceLike = None) -> Dict:
+    """An ``adafactor`` / ``adafactor_fused`` state of either package, or
+    its ``tree_to_numpy`` form (``m`` there float32), -> the port's:
+    ``count`` int32, ``v`` a tree of ``{"vr", "vc"}`` / ``{"v"}`` float32
+    dicts, ``m`` bfloat16 (``momentum_dtype``) where there is momentum."""
+    out = tree_from_numpy({k: v for k, v in state.items() if k != "m"},
+                          device)
+    out["count"] = out["count"].to(torch.int32)
+    if "m" in state:
+        out["m"] = tree_from_numpy(state["m"], device,
+                                   float_dtype=torch.bfloat16)
+    return out
+
+
+def recsys_params_from_jax(params, cfg: RecsysConfig, a1=None, a2=None,
+                           device: DeviceLike = None) -> RecsysModel:
+    """A reference recsys param dict of any interaction (``tables``,
+    ``wide``, ``deep``, ``attn_layers`` as a list of dicts, ``item_table``,
+    ``attn_mlp``, ``S``, ``head``, ``minhash_table``), and its frontend's
+    2U coefficients (uint32 arrays; the reference draws them per process,
+    so they are handed over), -> the port's model with the same values on
+    ``device``.  ``cfg`` is the port's config of the same arch."""
+    dev = resolve_device(device)
+    p = tree_from_numpy(params, dev, float_dtype=cfg.param_dtype)
     if cfg.use_minhash_frontend:
-        p["minhash_table"] = t(params["minhash_table"])
         a1, a2 = from_numpy(a1, dev), from_numpy(a2, dev)
     return RecsysModel(cfg, p, a1, a2)

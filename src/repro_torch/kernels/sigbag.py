@@ -18,7 +18,13 @@ all-zero one-hot row does (``sigbag_ref`` gives NaN there).
   * ``sigbag_cuda``  -- launches ``csrc/sigbag.cu`` on the current stream;
     counts its launches in ``sigbag_cuda.launches``.
   * ``sigbag(tokens, table)`` -- the plain version for CPU tensors, the
-    kernel for CUDA tensors.
+    kernel for CUDA tensors; differentiable in ``table`` when autograd
+    records it.
+  * ``sigbag_table_grad`` -- its backward, the scatter-add
+    ``d table[j, tokens[i, j], :] += d out[i, :]`` in plain PyTorch
+    (``index_put_`` with ``accumulate``), dropping the tokens the forward
+    drops.  The JAX package has no backward kernel either: its training
+    graph differentiates ``sigbag_ref`` by autodiff.
 
 The kernel has two designs (see the header of ``csrc/sigbag.cu``): (A)
 slot tables staged in shared memory, for bulk batches, and (B) a direct
@@ -187,9 +193,52 @@ def sigbag_plan_cuda(tokens: torch.Tensor, table: torch.Tensor):
     return SigbagPlan(bool(staged), rows, stages, stage_bytes, tpr), sms
 
 
-def sigbag(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Signature embedding-bag: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def _sigbag_forward(tokens: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
     if same_device(tokens, table).type == "cpu":
         return sigbag_plain(tokens, table)
     return sigbag_cuda(tokens, table)
+
+
+def sigbag_table_grad(tokens: torch.Tensor, grad_out: torch.Tensor,
+                      table_shape, dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of ``sigbag(tokens, table)`` in ``table`` given the
+    output's gradient ``grad_out (n, d)``: a (k, 2^b, d) table of ``dtype``
+    summed in float32.  Out-of-range tokens scatter into a spare row that
+    is cut off, so they add nothing, as in the forward."""
+    k, two_b, d = table_shape
+    n = tokens.shape[0]
+    tok = tokens.to(torch.int64)
+    slots = torch.arange(k, dtype=torch.int64, device=tok.device) * two_b
+    flat = torch.where((tok >= 0) & (tok < two_b), tok + slots, k * two_b)
+    grad = torch.zeros((k * two_b + 1, d), dtype=torch.float32,
+                       device=grad_out.device)
+    rows = grad_out.to(torch.float32)[:, None, :].expand(n, k, d)
+    grad.index_put_((flat.reshape(-1),), rows.reshape(n * k, d),
+                    accumulate=True)
+    return grad[:-1].reshape(k, two_b, d).to(dtype)
+
+
+class _SigbagFunction(torch.autograd.Function):
+    """``sigbag`` with its table gradient (tokens are integers: none)."""
+
+    @staticmethod
+    def forward(ctx, tokens, table):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+        return _sigbag_forward(tokens, table)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (tokens,) = ctx.saved_tensors
+        return None, sigbag_table_grad(tokens, grad_out, ctx.table_shape,
+                                       ctx.table_dtype)
+
+
+def sigbag(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Signature embedding-bag: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors; through ``_SigbagFunction`` when
+    autograd needs the table's gradient."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _SigbagFunction.apply(tokens, table)
+    return _sigbag_forward(tokens, table)

@@ -1,10 +1,11 @@
 """Serving launcher (port of ``repro.launch.serve``): recsys scoring and
 similarity search.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch wide-deep
+    PYTHONPATH=src python -m repro_torch.launch.serve
+        --arch wide-deep|autoint|din|mind
         [--smoke | --no-smoke] [--requests N] [--device cuda|cpu]
 
-Builds the arch's ``serve_p99`` cell (``--no-smoke``: the published
+Builds the recsys arch's ``serve_p99`` cell (``--no-smoke``: the published
 widths), draws its weights from a seeded generator on the device, and
 scores ``--requests`` fresh batches of random inputs through
 ``serve_scores``, after one untimed request that builds the kernels.
@@ -259,7 +260,8 @@ def _sharded_row_reader(sharded):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="serve a recsys arch's serve_p99 cell (wide-deep)")
+                    help="serve a recsys arch's serve_p99 cell (wide-deep, "
+                         "autoint, din, mind)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="shrink the arch for a fast smoke run "

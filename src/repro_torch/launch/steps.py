@@ -1,34 +1,54 @@
-"""Step programs per (architecture x shape cell) (port of the recsys
-serving part of ``repro.launch.steps``).
+"""Step programs per (architecture x shape cell) (port of the recsys part
+of ``repro.launch.steps``).
 
 ``build_cell(arch_id, cell_name, smoke, device)`` returns a ``CellProgram``
 with the cell's config and input specs, ``init_params(generator)`` (the
-model, on the generator's device) and ``step(model, inputs)``;
+model, on the generator's device) and ``step``, whose arguments follow the
+cell's kind as the reference's do:
+
+  * ``recsys_serve``:     ``step(model, inputs) -> (B,) scores``
+  * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,) logits``
+  * ``recsys_train``:     ``step(model, params, opt_state, inputs) ->
+    (params, opt_state, loss)``, the fused Adafactor step on the
+    reference's parameter dict; ``model`` gives the config and the
+    frontend's coefficients, and its own parameters are not read.
+
+The reference's unfused optimizers (AdamW, for the LM family below its
+parameter thresholds) come with the LM family; every recsys cell trains
+with the fused Adafactor.
+
 ``init_inputs(program, generator)`` draws a batch of inputs in the
-reference's ranges.  Only the serving cells are ported (``serve_p99``,
-``serve_bulk``); training and candidate retrieval are ``ROADMAP.md``
-queue 1, "Recsys, the rest".
+reference's ranges.  The reference's sharding specs and shape-only avals
+belong to the mesh path (``ROADMAP.md`` queue 1, "The multi-GPU mesh
+path").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import get_config, input_specs
+from repro_torch.configs.base import get_cell, get_config, input_specs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import recsys as recsys_lib
+from repro_torch.optim import warmup_cosine
+from repro_torch.optim.base import Optimizer
+from repro_torch.optim.optimizers import adafactor_fused
+from repro_torch.tree import tree_leaves, tree_map, unflatten_like
 
 
 @dataclasses.dataclass
 class CellProgram:
     arch_id: str
     cell_name: str
+    kind: str
     config: Any
     device: torch.device
-    input_specs: Dict[str, Any]
+    input_specs: Dict[str, Any]          # tensor inputs only
+    n_candidates: Optional[int] = None   # recsys_retrieval
+    optimizer: Optional[Optimizer] = None   # recsys_train, fused
 
     def init_params(self, generator: torch.Generator) -> recsys_lib.RecsysModel:
         """Fresh weights from ``generator``, which must be on the
@@ -38,27 +58,102 @@ class CellProgram:
                              f"{self.device}")
         return recsys_lib.init_recsys_params(self.config, generator)
 
-    def step(self, model: recsys_lib.RecsysModel,
-             inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return recsys_lib.serve_scores(model, inputs)
+    def step(self, model: recsys_lib.RecsysModel, *args):
+        """The cell's step (see the module docstring for its arguments)."""
+        if self.kind == "recsys_serve":
+            (inputs,) = args
+            return recsys_lib.serve_scores(model, inputs)
+        if self.kind == "recsys_retrieval":
+            (inputs,) = args
+            return recsys_lib.retrieval_scores(model, inputs,
+                                               self.n_candidates)
+        params, opt_state, inputs = args
+        loss = lambda p, batch: recsys_lib.recsys_loss(model, batch, p)
+        return _make_train_step(loss, self.optimizer)(params, opt_state,
+                                                      inputs)
+
+
+def _pick_optimizer() -> Optimizer:
+    """A recsys train cell's optimizer: embedding tables dominate, so a
+    factored second moment (O(V + d) state a table) in place of AdamW's
+    two table-sized states, applied by the fused update."""
+    return adafactor_fused(warmup_cosine(3e-4, 200, 10000), momentum=None)
+
+
+def _make_train_step(loss_fn: Callable, optimizer: Optimizer,
+                     microbatch: int = 1) -> Callable:
+    """``step(params, opt_state, inputs) -> (params, opt_state, loss)``,
+    gradients by ``torch.autograd.grad``, applied by a fused optimizer
+    (``update(g, s, p) -> (new_params, new_state)``).  With ``microbatch``
+    m > 1 the batch is split in m along axis 0, the gradients summed over
+    the slices from zero and divided by m in the parameters' type, as the
+    reference's scan does."""
+
+    def grads_of(params, inputs):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, inputs)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.detach(), unflatten_like(params, list(grads))
+
+    def step(params, opt_state, inputs):
+        if microbatch <= 1:
+            loss, grads = grads_of(params, inputs)
+        else:
+            m = microbatch
+            grads = tree_map(torch.zeros_like, params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+            for i in range(m):
+                mb = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
+                      for k, v in inputs.items()}
+                l_i, g_i = grads_of(params, mb)
+                grads = tree_map(lambda a, g: a + g.to(a.dtype), grads, g_i)
+                loss = loss + l_i
+            grads = tree_map(lambda g: (g / m).to(g.dtype), grads)
+            loss = loss / m
+        with torch.no_grad():
+            params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step
 
 
 def build_cell(arch_id: str, cell_name: str, smoke: bool = False,
                device: DeviceLike = None) -> CellProgram:
-    return CellProgram(arch_id=arch_id, cell_name=cell_name,
+    cell = get_cell(arch_id, cell_name)
+    specs = input_specs(arch_id, cell_name, smoke)
+    prog = CellProgram(arch_id=arch_id, cell_name=cell_name, kind=cell.kind,
                        config=get_config(arch_id, smoke),
-                       device=resolve_device(device),
-                       input_specs=input_specs(arch_id, cell_name, smoke))
+                       device=resolve_device(device), input_specs=specs,
+                       n_candidates=specs.pop("n_candidates", None))
+    if cell.kind == "recsys_train":
+        prog.optimizer = _pick_optimizer()
+    return prog
 
 
 def init_inputs(program: CellProgram,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One batch of random inputs, drawn on the generator's device in the
-    reference's ranges: ``field_ids`` in [0, vocab), ``set_ids`` in
-    [0, 2^s), ``set_counts`` in [1, set_nnz)."""
+    reference's ranges: ``field_ids`` in [0, vocab), ``hist_ids`` and
+    ``target_id`` in [0, item_vocab), ``set_ids`` in [0, 2^s),
+    ``set_counts`` in [1, set_nnz), ``hist_mask`` ones and ``labels``
+    Bernoulli(0.5) in float32."""
     cfg = program.config
-    ranges = {"field_ids": (0, cfg.vocab), "set_ids": (0, 1 << cfg.minhash_s),
+    ranges = {"field_ids": (0, cfg.vocab), "hist_ids": (0, cfg.item_vocab),
+              "target_id": (0, cfg.item_vocab),
+              "set_ids": (0, 1 << cfg.minhash_s),
               "set_counts": (1, cfg.set_nnz)}
-    return {name: torch.randint(*ranges[name], spec.shape, dtype=spec.dtype,
-                                generator=generator, device=generator.device)
-            for name, spec in program.input_specs.items()}
+    dev = generator.device
+    out = {}
+    for name, spec in program.input_specs.items():
+        if name == "hist_mask":
+            out[name] = torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+        elif name == "labels":
+            out[name] = torch.bernoulli(
+                torch.full(spec.shape, 0.5, dtype=spec.dtype, device=dev),
+                generator=generator)
+        else:
+            out[name] = torch.randint(*ranges[name], spec.shape,
+                                      dtype=spec.dtype, generator=generator,
+                                      device=dev)
+    return out

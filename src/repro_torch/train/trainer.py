@@ -93,8 +93,14 @@ class Trainer:
         return state
 
     def fit(self, state: TrainState, batches: Callable[[], Iterable[Any]],
-            n_steps: int) -> TrainState:
-        """Run up to n_steps over (repeatable) batch streams with restarts."""
+            n_steps: int, start_step: int = 0) -> TrainState:
+        """Run up to n_steps over (repeatable) batch streams with restarts.
+
+        Steps are counted from ``start_step``, whose batches the stream
+        skips: a state resumed at step s passes ``start_step=s`` and the
+        run's total as ``n_steps``, so checkpoints keep absolute step
+        names.  (The reference counts from 0, so a resumed run there takes
+        ``n_steps`` more steps under step names that restart at 0.)"""
 
         def run(st: TrainState, from_step: int):
             step_no = from_step
@@ -123,10 +129,10 @@ class Trainer:
             return ckpt_lib.restore(self.ckpt_dir, state, step=step)
 
         if not self.ckpt_dir:
-            st, _ = run(state, 0)
+            st, _ = run(state, start_step)
             return st
         st, _, _ = run_with_restarts(
-            init_state=state, init_step=0, run_steps=run,
+            init_state=state, init_step=start_step, run_steps=run,
             restore_fn=restore, max_failures=self.max_failures)
         return st
 

@@ -30,11 +30,13 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-# the batch-learning slice's modules, which the walk must have reached
+# the batch-learning and recsys slices' modules, which the walk must
+# have reached
 required = ["repro_torch." + m for m in (
     "core.minhash", "core.vw", "core.lsh", "optim", "optim.base",
     "optim.schedules", "optim.optimizers", "train.trainer",
-    "train.checkpoint", "train.fault", "kernels.ops", "tree")]
+    "train.checkpoint", "train.fault", "kernels.ops", "tree",
+    "launch.train", "configs.autoint", "configs.din", "configs.mind")]
 for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab

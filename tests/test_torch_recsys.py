@@ -27,7 +27,7 @@ from repro.kernels import ref as kref
 from repro.models import recsys as j_recsys
 from repro_torch.configs import get_arch, input_specs
 from repro_torch.convert import recsys_params_from_jax
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.steps import build_cell, init_inputs
 from repro_torch.models import recsys as t_recsys
 
@@ -95,17 +95,22 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_archs_and_kinds_raise():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_arch("autoint")
-    for cell in ("train_batch", "retrieval_cand"):
+    """What the port still refuses: the LM and GNN archs, an unknown
+    interaction and the mesh path of the train launcher."""
+    for arch in ("deepseek-7b", "gatedgcn"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
-            build_cell("wide-deep", cell, smoke=True, device="cpu")
+            get_arch(arch)
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            build_cell(arch, "train_batch", smoke=True, device="cpu")
+    with pytest.raises(KeyError, match="no cell"):
+        build_cell("wide-deep", "train_4k", smoke=True, device="cpu")
     cfg = dataclasses.replace(get_arch("wide-deep").smoke,
-                              interaction="self-attn")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                              interaction="cross")
+    with pytest.raises(ValueError, match="interaction"):
         t_recsys.init_recsys_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_recsys.recsys_loss(None, {})
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "wide-deep", "--mesh", "single-pod",
+                    "--device", "cpu"])
 
 
 def test_embedding_lookup_matches_reference():
@@ -212,4 +217,4 @@ def test_serve_entry_point(capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "wide-deep", "--smoke", "--requests", "2"])
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "autoint", "--device", "cpu"])
+        serve.main(["--arch", "deepseek-7b", "--device", "cpu"])
