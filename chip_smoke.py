@@ -42,8 +42,16 @@ at d = 16 in both designs and ``minhash2u`` at AutoInt's frontend
 bit-exact against their plain versions, AutoInt's scores against the
 plain frontend, DIN's and MIND's against the same code in float64, the
 frontend table's gradient against autograd through ``sigbag_plain``, a
-restarted DIN fit against the unfailed one, and both launchers.
-Scratch data goes to ``build/smoke/`` and is removed at the end.  It
+restarted DIN fit against the unfailed one, and both launchers.  Phase
+10 serves the five LM archs at their published widths in bfloat16, depth
+and batch cut to fit the card (``LM_RUNS``): a timed prefill and a timed
+greedy decode of each through ``build_cell`` / ``init_inputs`` /
+``step`` beside their bounds, then at depth 2 bfloat16 against the same
+weights in float32, float32 decode against prefill, each decode step
+writing the cache at pos - 1 only, deepseek-v3's MoE dispatch against a
+per-token loop, and ``launch.serve --arch`` for each arch; the LM path
+runs none of the six kernels (the reference's attention and MoE are plain
+jnp).  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
 
@@ -235,6 +243,43 @@ CHUNK_RTOL = CHUNK_ATOL_SHARE = 1e-5
 # sigbag's table gradient by the scatter-add against autograd through
 # sigbag_plain: both sum the same terms, in other orders (atomics)
 GRAD_ATOL_SHARE = 1e-5
+
+# LM serving (phase 10): each arch at its published widths in bfloat16,
+# depth and batch cut to fit one 80 GB card: arch -> (layers, prefill
+# positions, decode cell, decode batch, decode steps).  Cuts: deepseek-7b
+# prefill batch 32 -> 1, decode_32k batch 128 -> 2; llama4-scout 48 -> 4
+# layers (3 chunked-local + 1 global), prefill batch 32 -> 1; deepseek-v3
+# 61 -> 4 layers (its 3 dense + 1 MoE), prefill 32 x 32,768 -> 1 x 8,192,
+# decode_32k batch 128 -> 8; yi-34b 60 -> 2, mistral-large 88 -> 2 layers,
+# prefill 32 x 32,768 -> 1 x 4,096, decode_32k batch 128 -> 2.
+LM_RUNS = {
+    "deepseek-7b": (30, 32_768, "decode_32k", 2, 64),
+    "llama4-scout-17b-a16e": (4, 32_768, "long_500k", 1, 16),
+    "deepseek-v3-671b": (4, 8_192, "decode_32k", 8, 16),
+    "yi-34b": (2, 4_096, "decode_32k", 2, 16),
+    "mistral-large-123b": (2, 4_096, "decode_32k", 2, 16),
+}
+BF16_DENSE_FLOPS = 989e12     # H100 SXM bfloat16 tensor-core peak, dense
+LM_WARMUP_SEQ = 2_048         # untimed prefill before the timed one
+LM_PROFILE_SEQ = 8_192        # deepseek-7b prefill under the profiler
+# the checks at depth 2: prefill then decode CHECK_TOKENS tokens in
+# float32; decode's next token == argmax of prefill's logits wherever the
+# top-2 margin exceeds LOGIT_MARGIN (float32 products in two orders differ
+# by ~1e-5 there)
+CHECK_DEPTH, CHECK_TOKENS, LOGIT_MARGIN = 2, 64, 1e-3
+# bfloat16 against float32 on the same weights, per token: ||h_bf16 -
+# h_f32|| / ||h_f32|| of the rms-normed hidden state.  bfloat16 rounds a
+# value by up to 2^-9; ~10 roundings in series a layer, two layers, give
+# ~1% (deepseek-7b on an H100: 1.04e-2 over all tokens).  The median is
+# bounded for every arch, the largest for the dense ones: in an MoE arch a
+# token whose router scores nearly tie may go to another expert in
+# bfloat16 (top-1 in llama4-scout: its whole FFN output changes), a
+# discrete difference, not a rounding one; those tokens are counted and
+# printed.
+BF16_REL_L2, BF16_REL_MAX = 3e-2, 1e-1
+# the MoE dispatch against a per-token loop, float32 with TF32 off: the
+# same products in other shapes (cuBLAS may pick another algorithm)
+MOE_ATOL_SHARE = 1e-4
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -987,6 +1032,9 @@ def run(torch) -> int:
     # -- phase 9: AutoInt, DIN, MIND and Wide & Deep in every cell -------
     for name, n_launch in recsys_family(torch, dev).items():
         rows[name]["launches"] += n_launch
+
+    # -- phase 10: the LM family served (no kernel of ours on its path) ---
+    lm_serving(torch, dev)
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2573,6 +2621,337 @@ def recsys_family(torch, dev) -> dict:
         f"driven paths {launches}; {held:,} B held before the phase")
     return launches
 
+
+
+def lm_prefill_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul FLOPs of one ``forward`` as the reference computes it: every
+    projection, every expert on its whole capacity buffer (empty rows
+    included), and every attention block, masked ones too (Q.K and P.V
+    over all S x S pairs).  The output projection is not part of a
+    prefill."""
+    from repro_torch.models.moe import _capacity
+    T, d, H = batch * seq, cfg.d_model, cfg.n_heads
+    if cfg.attention == "mla":
+        dqk, dv = cfg.qk_nope + cfg.qk_rope, cfg.v_head
+        proj = (d * cfg.q_lora + cfg.q_lora * H * dqk + d * cfg.kv_lora
+                + cfg.kv_lora * H * (cfg.qk_nope + dv) + d * cfg.qk_rope
+                + H * dv * d)
+    else:
+        dqk = dv = cfg.head_dim
+        proj = 2 * d * H * dqk + 2 * d * cfg.n_kv * dqk
+    attn = 2 * T * proj + 2 * batch * H * seq * seq * (dqk + dv)
+    n_dense = cfg.n_dense_layers if cfg.is_moe else cfg.n_layers
+    total = (cfg.n_layers * attn
+             + n_dense * 2 * T * 3 * d * (cfg.d_ff_dense or cfg.d_ff))
+    if cfg.is_moe:
+        m = cfg.moe
+        total += (cfg.n_layers - cfg.n_dense_layers) * (
+            2 * T * d * m.n_experts
+            + 2 * m.n_experts * _capacity(T, m) * 3 * d * m.d_ff
+            + 2 * T * 3 * d * m.d_ff * m.n_shared)
+    return float(total)
+
+
+def lm_serving(torch, dev) -> None:
+    """Phase 10: the LM family served at its published widths in bfloat16,
+    depth and batch cut as ``LM_RUNS`` says: per arch a timed prefill and
+    a timed greedy decode through ``build_cell`` / ``init_inputs`` /
+    ``step``, each beside its bound; then, at depth 2, the card's checks
+    -- bfloat16 against the same weights in float32, prefill against
+    decode in float32, every decode step writing the cache at pos - 1 and
+    nowhere else, deepseek-v3's MoE dispatch against a per-token loop --
+    and ``python -m repro_torch.launch.serve --arch`` for each arch at its
+    smoke config.  No kernel of ours runs here: the reference computes
+    attention, MLA and the MoE dispatch in plain jnp."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, get_cell
+    from repro_torch.configs.base import InputSpec
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell, init_inputs
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import swiglu
+    from repro_torch.tree import path_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 checks
+    held = torch.cuda.memory_allocated()
+    i32 = torch.int32
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def cut(arch, cell, depth, batch, seq):
+        """``build_cell(arch, cell)`` at ``depth`` layers, ``batch`` rows
+        and ``seq`` positions (prefill tokens, or the decode cache)."""
+        prog = build_cell(arch, cell, smoke=False, device=dev)
+        cfg = prog.config
+        # an MoE arch keeps its MoE stack: deepseek-v3 at depth 2 is one
+        # dense layer and one MoE layer
+        cfg = dataclasses.replace(cfg, n_layers=depth, n_dense_layers=min(
+            cfg.n_dense_layers, depth - 1 if cfg.is_moe else 0))
+        if prog.kind == "lm_prefill":
+            specs = {"tokens": InputSpec((batch, seq), i32)}
+        else:
+            cache = {key: {name: InputSpec(tuple(t.shape), t.dtype)
+                           for name, t in stack.items()}
+                     for key, stack in tfm.cache_shapes(cfg, batch,
+                                                        seq).items()}
+            specs = {"cache": cache, "tokens": InputSpec((batch,), i32),
+                     "pos": InputSpec((), i32)}
+        return dataclasses.replace(prog, config=cfg, input_specs=specs)
+
+    def timed(arch, depth, seq, dec_cell, dec_batch, steps):
+        """The cut model's timed prefill and decode; returns the rows of
+        the phase's summary."""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+        pre = cut(arch, "prefill_32k", depth, 1, seq)
+        cfg = pre.config
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = pre.init_params(gen)
+        init_s = sync_s(t0)
+        w_bytes = nbytes(model.parameters())
+        log(f"[lm {arch}] {depth} of {get_arch(arch).config.n_layers} "
+            f"layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, "
+            f"{cfg.attention}{', window %d' % cfg.local_window if cfg.local_window else ''}"
+            f"{', %d experts top-%d' % (cfg.moe.n_experts, cfg.moe.top_k) if cfg.is_moe else ''}"
+            f", {str(cfg.param_dtype)[6:]}: weights {w_bytes:,} B drawn on "
+            f"the card in "
+            f"{init_s:.1f} s")
+        inputs = init_inputs(pre, gen)
+        pre.step(model, {"tokens": inputs["tokens"][:, :LM_WARMUP_SEQ]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = pre.step(model, inputs)
+        pre_s = sync_s(t0)
+        if h.shape != (1, seq, cfg.d_model) or not bool(
+                torch.isfinite(h).all()):
+            raise AssertionError(f"{arch} prefill: {tuple(h.shape)}, "
+                                 "or not finite")
+        flops = lm_prefill_flops(cfg, 1, seq)
+        pre_b = w_bytes + nbytes([inputs["tokens"], h])
+        pre_bound = max((flops / BF16_DENSE_FLOPS * 1e3, "operations"),
+                        (pre_b / HBM_BYTES_PER_S * 1e3, "bytes"))
+        log(f"[lm {arch}] prefill 1 x {seq:,}: {pre_s * 1e3:.1f} ms "
+            f"({seq / pre_s:,.0f} tokens/s; host clock to a synchronize, "
+            f"after an untimed {LM_WARMUP_SEQ:,}-token prefill), bound "
+            f"{pre_bound[0]:.1f} ms ({pre_bound[1]}: {flops:.4e} FLOP at "
+            f"{BF16_DENSE_FLOPS:.3e}/s), {pre_bound[0] / (pre_s * 1e3):.1%}"
+            f" of it")
+        if arch == "deepseek-7b":
+            short = {"tokens": inputs["tokens"][:, :LM_PROFILE_SEQ]}
+            log(f"[lm {arch}] prefill 1 x {LM_PROFILE_SEQ:,} under the "
+                f"profiler: "
+                + device_breakdown(lambda: pre.step(model, short), torch))
+        del h, inputs
+
+        L = get_cell(arch, dec_cell).dims["seq"]
+        dec = cut(arch, dec_cell, depth, dec_batch, L)
+        inputs = init_inputs(dec, gen)
+        cache, tokens = inputs["cache"], inputs["tokens"]
+        pos = torch.ones((), dtype=i32, device=dev)
+        tokens, cache = dec.step(model, {"cache": cache, "tokens": tokens,
+                                         "pos": pos})       # warm-up step
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps - 1):
+            pos = pos + 1
+            tokens, cache = dec.step(model, {"cache": cache,
+                                             "tokens": tokens, "pos": pos})
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / (steps - 1)
+        if not (tokens.dtype == i32 and 0 <= int(tokens.min())
+                and int(tokens.max()) < cfg.vocab):
+            raise AssertionError(f"{arch} decode: tokens {tokens}")
+        for path, leaf in path_leaves(cache):
+            written = leaf[:, :, :steps].flatten(3).abs().amax(-1) > 0
+            # per (layer, row): a contiguous slab, read without a copy
+            rest = torch.stack([leaf[i, b, steps:].any()
+                                for i in range(leaf.shape[0])
+                                for b in range(leaf.shape[1])])
+            if bool(rest.any()) or not bool(written.all()):
+                raise AssertionError(f"{arch} decode: cache {path} not "
+                                     f"written at exactly 0..{steps - 1}")
+        cache_b = nbytes(t for _, t in path_leaves(cache))
+        embed = model.params()["embed"]
+        dec_b = (w_bytes - nbytes([embed]) + cache_b
+                 + dec_batch * cfg.d_model * embed.element_size())
+        dec_bound = dec_b / HBM_BYTES_PER_S * 1e3
+        log(f"[lm {arch}] decode {dec_cell} batch {dec_batch} x {L:,} "
+            f"(cache {cache_b:,} B): {step_ms:.2f} ms a step "
+            f"({dec_batch / step_ms * 1e3:,.1f} tokens/s; CUDA events over "
+            f"{steps - 1} steps after a warm-up step), bound "
+            f"{dec_bound:.2f} ms (bytes: {dec_b:,} B of weights and the "
+            f"whole cache at {HBM_BYTES_PER_S:.3e} B/s), "
+            f"{dec_bound / step_ms:.1%} of it")
+        if arch == "deepseek-7b":
+            nxt = {"cache": cache, "tokens": tokens, "pos": pos + 1}
+            log(f"[lm {arch}] one decode step under the profiler: "
+                + device_breakdown(lambda: dec.step(model, nxt), torch))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[lm {arch}] max_memory_allocated {peak:,} B")
+        return dict(prefill_ms=pre_s * 1e3, prefill_bound=pre_bound[0],
+                    decode_ms=step_ms, decode_bound=dec_bound, peak=peak)
+
+    def moe_check(p, mcfg, d):
+        """deepseek-v3's MoE layer (float32) on CHECK_TOKENS tokens, 24 of
+        them copies of token 0, which overflow its experts' capacity:
+        ``_moe_ffn_dense`` against a loop over each token's kept
+        assignments, and the same dropped set."""
+        T, E, k = CHECK_TOKENS, mcfg.n_experts, mcfg.top_k
+        g = torch.Generator(device=dev).manual_seed(SEED + 52)
+        x = torch.randn((T, d), generator=g, device=dev)
+        x[40:] = x[0]
+        got = moe_lib._moe_ffn_dense(p, x, mcfg)
+        C = moe_lib._capacity(T, mcfg)
+        topv, topi = moe_lib.route(p, x, mcfg)
+        dp = moe_lib.dispatch(topv, topi, E, C)
+        kernel_drops = {(int(t), int(o) % k) for t, o, kept in
+                        zip(dp.tok.tolist(), dp.order.tolist(),
+                            dp.keep.tolist()) if not kept}
+        seen, drops = [0] * E, set()
+        want = swiglu(x, p["shared"]["w_gate"], p["shared"]["w_up"],
+                      p["shared"]["w_down"])
+        for t, experts in enumerate(topi.tolist()):
+            for j, e in enumerate(experts):
+                if seen[e] >= C:
+                    drops.add((t, j))
+                else:
+                    want[t] += topv[t, j] * swiglu(
+                        x[t:t + 1], p["w_gate"][e], p["w_up"][e],
+                        p["w_down"][e])[0]
+                seen[e] += 1
+        if kernel_drops != drops or not drops:
+            raise AssertionError(f"MoE dispatch dropped {len(kernel_drops)}"
+                                 f" assignments, the loop {len(drops)}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= MOE_ATOL_SHARE * scale:
+            raise AssertionError(f"MoE dispatch vs the loop: max |err| "
+                                 f"{err:.3e} of {scale:.3e}")
+        log(f"[lm deepseek-v3-671b] MoE dispatch ({E} experts top-{k}, "
+            f"shared expert, capacity {C}) on {T} tokens == a per-token "
+            f"loop: the same {len(drops)} dropped assignments, max |err| "
+            f"{err:.3e} of {scale:.3e} (float32)")
+
+    def checks(arch):
+        """Depth 2, CHECK_TOKENS tokens: bfloat16 vs float32 on the same
+        weights; prefill == decode in float32 with every decode step
+        writing the cache at pos - 1 only; deepseek-v3's MoE dispatch."""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        pre = cut(arch, "prefill_32k", CHECK_DEPTH, 1, CHECK_TOKENS)
+        model = pre.init_params(gen)
+        tokens = init_inputs(pre, gen)["tokens"]
+        routes, route = [], moe_lib.route
+
+        def recorded(*args):                     # keeps each call's experts
+            out = route(*args)
+            routes.append(out[1])
+            return out
+
+        moe_lib.route = recorded
+        try:
+            h16 = pre.step(model, {"tokens": tokens}).float()
+            for p in model.parameters():         # the same weights, float32
+                p.data = p.data.float()
+            cfg32 = dataclasses.replace(pre.config, param_dtype=torch.float32)
+            h32 = dataclasses.replace(pre, config=cfg32).step(
+                model, {"tokens": tokens})
+        finally:
+            moe_lib.route = route
+        rel = ((h16 - h32).norm(dim=-1) / h32.norm(dim=-1))[0]  # per token
+        half = len(routes) // 2                  # the bf16 run's, then f32's
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                        .sum()) for a, b in zip(routes[:half], routes[half:]))
+        med, worst = float(rel.median()), float(rel.max())
+        if not (med < BF16_REL_L2 and (cfg32.is_moe or worst < BF16_REL_MAX)):
+            raise AssertionError(f"{arch}: bfloat16 vs float32 hidden "
+                                 f"states, per-token relative L2 median "
+                                 f"{med:.3e}, max {worst:.3e}")
+        if cfg32.is_moe:
+            if arch == "deepseek-v3-671b":       # its layer 1, the MoE one
+                moe_check(tree_map(lambda t: t[0],
+                                   model.params()["layers"]["ffn"]),
+                          cfg32.moe, cfg32.d_model)
+            # for the prefill == decode check only: capacity n_experts /
+            # top_k, so that neither path drops an assignment
+            cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+                cfg32.moe,
+                capacity_factor=cfg32.moe.n_experts / cfg32.moe.top_k))
+        h = dataclasses.replace(pre, config=cfg32).step(
+            model, {"tokens": tokens})[0]
+        logits = h @ model.params()["out"]                   # (S, V)
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_MARGIN
+        dec = dataclasses.replace(
+            cut(arch, "decode_32k", CHECK_DEPTH, 1, CHECK_TOKENS),
+            config=cfg32)
+        cache = init_inputs(dec, gen)["cache"]
+        got = []
+        for t in range(CHECK_TOKENS):
+            before = {path: c.clone() for path, c in path_leaves(cache)}
+            nxt, cache = dec.step(model, {"cache": cache,
+                                          "tokens": tokens[:, t],
+                                          "pos": t + 1})
+            for path, leaf in path_leaves(cache):
+                changed = (leaf != before[path]).flatten(3).any(-1)
+                want = torch.zeros_like(changed)
+                want[:, :, t] = True          # every layer and row, pos - 1
+                if not torch.equal(changed, want):
+                    raise AssertionError(f"{arch} decode step {t + 1}: "
+                                         f"cache {path} changed elsewhere")
+            got.append(nxt)
+        got = torch.cat(got)
+        agree = (got == logits.argmax(-1).to(i32))[clear]
+        if not bool(agree.all()):
+            raise AssertionError(f"{arch}: decode != prefill argmax at "
+                                 f"{int((~agree).sum())} positions")
+        log(f"[lm {arch}] checks at depth {CHECK_DEPTH}, {CHECK_TOKENS} "
+            f"tokens, max_memory_allocated {torch.cuda.max_memory_allocated():,}"
+            f" B: bfloat16 vs float32 per-token relative L2 median "
+            f"{med:.3e} (bound {BF16_REL_L2}), max {worst:.3e}"
+            + (f" ({flips} token-layers routed to other experts)"
+               if cfg32.is_moe else f" (bound {BF16_REL_MAX})")
+            + f"; float32 decode == prefill argmax at all "
+            f"{int(clear.sum())} positions with a top-2 margin > "
+            f"{LOGIT_MARGIN}; each step wrote the cache at pos - 1 only, "
+            f"every layer ({', '.join(p for p, _ in path_leaves(cache))})")
+
+    summary = {}
+    for arch, run in LM_RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        summary[arch] = timed(arch, *run)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        checks(arch)
+    torch.cuda.empty_cache()
+
+    pattern = (r"decoded 16 tokens x batch 2 in \d+\.\d\ds \(\d+\.\d tok/s\);"
+               r" first sequence: \[(\d+, ){7}\d+\]")
+    for arch in LM_RUNS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve.main(["--arch", arch])
+        line = out.getvalue().strip().splitlines()[-1]
+        if not re.fullmatch(pattern, line):
+            raise AssertionError(f"serve --arch {arch} printed {line!r}")
+        log(f"[lm CLI] python -m repro_torch.launch.serve --arch {arch}: "
+            f"{line}")
+    log(f"[lm] {time.perf_counter() - t_phase:.1f} s, {held:,} B held "
+        f"before the phase (peaks include it); " + "; ".join(
+        f"{a}: prefill {r['prefill_ms']:.1f} ms (bound "
+        f"{r['prefill_bound']:.1f}), decode {r['decode_ms']:.2f} ms a step "
+        f"(bound {r['decode_bound']:.2f}), peak {r['peak']:,} B"
+        for a, r in summary.items()))
 
 if __name__ == "__main__":
     sys.exit(main())

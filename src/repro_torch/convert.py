@@ -1,5 +1,6 @@
 """Carry hash families, VW hashers, linear models, SGD and training state,
-recsys weights and Adafactor states from the JAX package into the port.
+recsys and LM weights, LM caches and Adafactor states from the JAX package
+into the port.
 
 Nothing here imports ``jax`` or ``repro``: a JAX object is read through
 its attributes with ``np.asarray`` (which any array-like supports), so
@@ -22,6 +23,7 @@ from repro_torch.core.vw import VWHasher
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.linear import LinearModel, SGDState
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
+from repro_torch.models.transformer import TransformerConfig, TransformerModel
 from repro_torch.train.trainer import TrainState
 
 
@@ -187,3 +189,22 @@ def recsys_params_from_jax(params, cfg: RecsysConfig, a1=None, a2=None,
     if cfg.use_minhash_frontend:
         a1, a2 = from_numpy(a1, dev), from_numpy(a2, dev)
     return RecsysModel(cfg, p, a1, a2)
+
+
+def lm_params_from_jax(params, cfg: TransformerConfig,
+                       device: DeviceLike = None) -> TransformerModel:
+    """A reference LM parameter tree (``embed``, ``out``, ``final_norm``,
+    ``layers`` and ``dense_layers`` stacked along axis 0; numpy arrays or
+    anything ``np.asarray`` reads) -> the port's model with the same
+    values on ``device``.  Each leaf keeps its type: bfloat16 (numpy's
+    ``ml_dtypes`` type) bit for bit, float32 (the MoE router of a
+    bfloat16 model) as float32.  ``cfg`` is the port's config of the same
+    arch."""
+    return TransformerModel(cfg, tree_from_numpy(params, device))
+
+
+def lm_cache_from_jax(cache, device: DeviceLike = None) -> Dict:
+    """A reference KV cache tree (``layers`` / ``dense_layers`` of ``k``,
+    ``v`` or MLA's ``ckv``, ``kr``) -> the port's, each leaf in its own
+    type on ``device``."""
+    return tree_from_numpy(cache, device)

@@ -1,5 +1,17 @@
-"""Serving launcher (port of ``repro.launch.serve``): recsys scoring and
-similarity search.
+"""Serving launcher (port of ``repro.launch.serve``): LM decoding, recsys
+scoring and similarity search.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve
+        --arch deepseek-7b|yi-34b|mistral-large-123b|llama4-scout-17b-a16e|
+               deepseek-v3-671b
+        [--smoke | --no-smoke] [--tokens N] [--device cuda|cpu]
+
+Builds the LM arch's ``decode_32k`` cell (``--no-smoke``: the published
+config and cell), draws its weights from a seeded generator on the device,
+and decodes ``--tokens`` greedy steps from pos = 1 over a zero cache,
+as the reference does.  Prints the tokens, batch, wall seconds (host clock
+to a synchronize, the first step included) and tokens/s, and the first
+sequence's first 8 tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.serve
         --arch wide-deep|autoint|din|mind
@@ -217,6 +229,29 @@ def _serve_traffic(searcher, words_of, n_total: int, args) -> None:
               f"worker restarts {snap['worker_restarts']}")
 
 
+def serve_lm(args) -> None:
+    """The LM workload: greedy decode ``--tokens`` steps with ``--arch``."""
+    from repro_torch.launch.steps import build_cell, init_inputs
+
+    dev = resolve_device(args.device)
+    prog = build_cell(args.arch, "decode_32k", smoke=args.smoke, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = prog.init_params(gen)
+    inputs = init_inputs(prog, gen)
+    cache, tokens = inputs["cache"], inputs["tokens"]
+    t0 = time.perf_counter()
+    out_tokens = [tokens]
+    for pos in range(1, args.tokens + 1):
+        tokens, cache = prog.step(model, {"cache": cache, "tokens": tokens,
+                                          "pos": pos})
+        out_tokens.append(tokens)
+    first = [int(t[0]) for t in out_tokens[:8]]     # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"decoded {args.tokens} tokens x batch {tokens.shape[0]} "
+          f"in {dt:.2f}s ({args.tokens * tokens.shape[0] / dt:.1f} "
+          f"tok/s); first sequence: {first}")
+
+
 def serve_recsys(args) -> None:
     """The recsys workload: score synthetic requests with ``--arch``."""
     from repro_torch.launch.steps import build_cell, init_inputs
@@ -260,7 +295,8 @@ def _sharded_row_reader(sharded):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="serve a recsys arch's serve_p99 cell (wide-deep, "
+                    help="decode an LM arch's decode_32k cell, or serve a "
+                         "recsys arch's serve_p99 cell (wide-deep, "
                          "autoint, din, mind)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -268,6 +304,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(--no-smoke serves the full-size config)")
     ap.add_argument("--index", action="store_true",
                     help="serve the similarity-search index workload")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="greedy decode steps (an LM --arch)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--mode", choices=("exact", "lsh"), default="lsh")
     ap.add_argument("--docs", type=int, default=2048)
@@ -338,10 +376,13 @@ def main(argv=None):
         ap.error("--arch is required unless --index is given")
     from repro_torch.configs import get_arch
     try:
-        get_arch(args.arch)
+        family = get_arch(args.arch).family
     except KeyError as e:
         ap.error(e.args[0])
-    serve_recsys(args)
+    if family == "lm":
+        serve_lm(args)
+    else:
+        serve_recsys(args)
 
 
 if __name__ == "__main__":

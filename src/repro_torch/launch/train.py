@@ -69,7 +69,10 @@ def main(argv=None) -> TrainState:
         ap.error(e.args[0])
     dev = resolve_device(args.device)
     cell = args.cell or _train_cell_name(args.arch)
-    prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
+    try:
+        prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
+    except NotImplementedError as e:          # an LM arch's train_4k
+        ap.error(e.args[0])
     if prog.kind != "recsys_train":
         ap.error(f"cell {cell!r} of {args.arch} is {prog.kind}, not a train "
                  "cell")

@@ -1,0 +1,195 @@
+"""Attention variants (port of ``repro.models.attention``): GQA (full
+causal), chunked-local (llama4-style), MLA (DeepSeek multi-head latent),
+and their single-token decode paths.
+
+Prefill attention is blockwise, an online softmax over KV blocks, so a
+score matrix never grows beyond ``(B * Hkv, G * blk_q, blk_kv)``; the
+mask (causal or chunked-local) is made from indices per block, never at
+(S, S).  As in the reference, every KV block of every Q block is computed
+and masked with ``NEG_INF``: skipping fully masked blocks is a later
+lever (``ROADMAP.md``).
+
+Every score and probability-times-value product returns float32, as the
+reference's ``preferred_element_type=jnp.float32`` does; probabilities
+are cast to the values' type before that product, and MLA's compressed
+output to the activations' type before ``W_uv``, as there.  The per-layer
+``window`` is a Python int (0 or None: full causal).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import apply_rope, rms_norm
+
+NEG_INF = -1e30
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` (3-D operands, any strides cuBLAS takes) with a
+    float32 result.  Which product runs follows the operands' type and
+    device: float32 operands multiply as they are; bfloat16 on CUDA runs
+    cuBLAS's bfloat16 product with float32 accumulation and a float32
+    output (``aten::bmm.dtype``); bfloat16 on the CPU, which has no
+    ``bmm.dtype`` kernel, widens both operands to float32 first -- exact,
+    since a product of two bfloat16 values is exact in float32."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _block_mask(q_idx: torch.Tensor, k_idx: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """(q_blk, kv_blk) validity.  window 0 / None: causal; w > 0: causal
+    within the chunk ``idx // w`` (llama4 chunked-local)."""
+    causal = k_idx[None, :] <= q_idx[:, None]
+    if not window:
+        return causal
+    return causal & ((k_idx[None, :] // window) == (q_idx[:, None] // window))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        blk_q: int = 1024, blk_kv: int = 1024) -> torch.Tensor:
+    """Causal (optionally chunked-local) attention with an online softmax.
+
+    q: (B, Sq, Hq, hd); k: (B, Skv, Hkv, hd); v: (B, Skv, Hkv, hd_v) with
+    Hq % Hkv == 0 (GQA; MLA's d_v may differ from d_qk).  Returns (B, Sq,
+    Hq, hd_v) in q's type.  Heads are laid out (B * Hkv, Sq * G, hd), rows
+    ordered (position, group member), so that a Q block is one slab and a
+    KV block a view; the reference's (B, Hkv, G, q) rows, in another order.
+    """
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    hd_v = v.shape[-1]
+    G = Hq // Hkv
+    scale = hd ** -0.5
+    blk_q, blk_kv = min(blk_q, Sq), min(blk_kv, Skv)
+    if Sq % blk_q or Skv % blk_kv:
+        raise ValueError(f"sequence lengths {Sq}, {Skv} are not multiples "
+                         f"of the blocks {blk_q}, {blk_kv}")
+    BH, rows = B * Hkv, blk_q * G
+    qh = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        BH, Sq * G, hd)
+    kh = k.permute(0, 2, 1, 3).reshape(BH, Skv, hd)
+    vh = v.permute(0, 2, 1, 3).reshape(BH, Skv, hd_v)
+    dev = q.device
+    outs = []
+    for qi in range(Sq // blk_q):
+        q_i = qh[:, qi * rows:(qi + 1) * rows]
+        q_idx = q_offset + qi * blk_q + torch.arange(blk_q, device=dev)
+        m = torch.full((BH, rows), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((BH, rows), dtype=torch.float32, device=dev)
+        acc = torch.zeros((BH, rows, hd_v), dtype=torch.float32, device=dev)
+        for ki in range(Skv // blk_kv):
+            ks = slice(ki * blk_kv, (ki + 1) * blk_kv)
+            k_idx = ki * blk_kv + torch.arange(blk_kv, device=dev)
+            s = matmul_f32(q_i, kh[:, ks].transpose(1, 2)).mul_(scale)
+            mask = _block_mask(q_idx, k_idx, window)
+            s.view(BH, blk_q, G, blk_kv).masked_fill_(
+                ~mask[None, :, None, :], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = s.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = matmul_f32(p.to(v.dtype), vh[:, ks])
+            acc = acc.mul_(corr[..., None]).add_(pv)
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(B, Hkv, Sq, G, hd_v)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, hd_v)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over a KV cache.
+
+    q: (B, Hq, hd); caches: (B, L, Hkv, hd); pos: () int -- the number of
+    valid cache entries (the new token's K/V already written at pos - 1).
+    ``window`` > 0 restricts attention to the current length-``window``
+    chunk; 0 / None is full causal.  The whole cache is scored and masked,
+    as in the reference.  Returns (B, Hq, hd) in q's type.
+    """
+    B, L, Hkv, hd = k_cache.shape
+    G = q.shape[1] // Hkv
+    qg = q.reshape(B, Hkv, G, hd)
+    idx = torch.arange(L, device=q.device)
+    valid = idx < pos
+    if window:
+        valid = valid & ((idx // window) == ((pos - 1) // window))
+    outs = []
+    for b in range(B):       # a cache row's (Hkv, hd, L) view needs no copy
+        s = matmul_f32(qg[b], k_cache[b].permute(1, 2, 0)).mul_(hd ** -0.5)
+        p = torch.softmax(s.masked_fill_(~valid, NEG_INF), dim=-1)
+        outs.append(matmul_f32(p.to(v_cache.dtype), v_cache[b].transpose(0, 1)))
+    return torch.stack(outs).reshape(B, Hkv * G, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+
+def mla_prefill(x: torch.Tensor, p: dict, *, n_heads: int, d_nope: int,
+                d_rope: int, d_v: int, positions: torch.Tensor,
+                rope_theta: float, blk: int = 1024) -> torch.Tensor:
+    """MLA forward for prefill (decompressed K/V).
+
+    Params p: wdq (d, q_lora), wuq (q_lora, H*(d_nope+d_rope)),
+    wdkv (d, kv_lora), wukv (kv_lora, H*(d_nope+d_v)), wkr (d, d_rope),
+    q_norm (q_lora,), kv_norm (kv_lora,), wo (H*d_v, d).
+    """
+    B, S, _ = x.shape
+    H = n_heads
+    cq = rms_norm(x @ p["wdq"], p["q_norm"])
+    q = (cq @ p["wuq"]).reshape(B, S, H, d_nope + d_rope)
+    q_rope = apply_rope(q[..., d_nope:], positions, rope_theta)
+    ckv = rms_norm(x @ p["wdkv"], p["kv_norm"])
+    kv = (ckv @ p["wukv"]).reshape(B, S, H, d_nope + d_v)
+    k_rope = apply_rope((x @ p["wkr"])[:, :, None, :], positions, rope_theta)
+    qc = torch.cat([q[..., :d_nope], q_rope], dim=-1)
+    kc = torch.cat([kv[..., :d_nope], k_rope.expand(B, S, H, d_rope)], dim=-1)
+    out = blockwise_attention(qc, kc, kv[..., d_nope:], blk_q=blk, blk_kv=blk)
+    return out.reshape(B, S, H * d_v) @ p["wo"]
+
+
+def mla_decode(x: torch.Tensor, p: dict, ckv_cache: torch.Tensor,
+               kr_cache: torch.Tensor, pos: torch.Tensor, *, n_heads: int,
+               d_nope: int, d_rope: int, d_v: int, rope_theta: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed-weight MLA decode: attention runs in the compressed space.
+
+    The cache holds only (kv_lora + d_rope) per token.  W_uk is absorbed
+    into the query, W_uv into the output:
+        score_h = (q_nope_h W_uk_h) . c_kv + q_rope_h . k_rope
+        out_h   = (sum_t a_t c_kv_t) W_uv_h
+    x: (B, D) one token; caches (B, L, kv_lora), (B, L, d_rope), written
+    in place at pos - 1.  Returns (attn_out (B, D), ckv_cache, kr_cache).
+    """
+    B, _ = x.shape
+    H = n_heads
+    L, kv_lora = ckv_cache.shape[1], ckv_cache.shape[2]
+    at = (pos - 1).reshape(1)
+    cq = rms_norm(x @ p["wdq"], p["q_norm"])
+    q = (cq @ p["wuq"]).reshape(B, H, d_nope + d_rope)
+    q_rope = apply_rope(q[:, None, :, d_nope:], at, rope_theta)[:, 0]
+    ckv_new = rms_norm(x @ p["wdkv"], p["kv_norm"])
+    kr_new = apply_rope((x @ p["wkr"])[:, None, None, :], at,
+                        rope_theta)[:, 0, 0]
+    ckv_cache.index_copy_(1, at.long(), ckv_new[:, None])
+    kr_cache.index_copy_(1, at.long(), kr_new[:, None])
+
+    wukv = p["wukv"].reshape(kv_lora, H, d_nope + d_v)
+    q_c = torch.einsum("bhn,chn->bhc", q[..., :d_nope], wukv[:, :, :d_nope])
+    s = (matmul_f32(q_c, ckv_cache.transpose(1, 2))
+         + matmul_f32(q_rope, kr_cache.transpose(1, 2))) * (
+             (d_nope + d_rope) ** -0.5)
+    valid = torch.arange(L, device=x.device) < pos
+    a = torch.softmax(s.masked_fill_(~valid, NEG_INF), dim=-1)
+    o_c = matmul_f32(a.to(ckv_cache.dtype), ckv_cache)     # (B, H, kv_lora)
+    o = torch.einsum("bhc,chv->bhv", o_c.to(x.dtype), wukv[:, :, d_nope:])
+    return o.reshape(B, H * d_v) @ p["wo"], ckv_cache, kr_cache

@@ -41,7 +41,8 @@ from torch import nn
 from repro_torch.core.u32 import narrow
 from repro_torch.kernels.minhash import minhash2u
 from repro_torch.kernels.sigbag import sigbag
-from repro_torch.models.layers import init_mlp, mlp, normal_init
+from repro_torch.models.layers import (attach_params, init_mlp, mlp,
+                                      normal_init)
 from repro_torch.tree import map_with_path
 
 # candidates scored at once by ``retrieval_scores``: at 65,536 the widest
@@ -139,32 +140,6 @@ def minhash_coeffs(generator: torch.Generator,
     return narrow(a1), narrow(a2)
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-def _attach(module: nn.Module, tree: Dict) -> None:
-    """Register a parameter dict under ``module``: tensors as parameters,
-    lists of tensors as ``ParameterList``s, lists of dicts as
-    ``ModuleList``s, dicts as submodules."""
-    for key, value in tree.items():
-        if isinstance(value, torch.Tensor):
-            module.register_parameter(key, _frozen(value))
-        elif isinstance(value, dict):
-            sub = nn.Module()
-            _attach(sub, value)
-            module.add_module(key, sub)
-        elif all(isinstance(v, torch.Tensor) for v in value):
-            module.add_module(key, nn.ParameterList(map(_frozen, value)))
-        else:
-            subs = []
-            for v in value:
-                sub = nn.Module()
-                _attach(sub, v)
-                subs.append(sub)
-            module.add_module(key, nn.ModuleList(subs))
-
-
 class RecsysModel(nn.Module):
     """A recsys model's parameters and frontend coefficients.
 
@@ -184,7 +159,7 @@ class RecsysModel(nn.Module):
         _check_interaction(cfg)
         self.cfg = cfg
         self._skeleton = map_with_path(lambda path, _: path, params)
-        _attach(self, params)
+        attach_params(self, params)
         if cfg.use_minhash_frontend:
             self.register_buffer("a1", a1)
             self.register_buffer("a2", a2)

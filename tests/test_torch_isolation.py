@@ -30,13 +30,16 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-# the batch-learning and recsys slices' modules, which the walk must
+# the batch-learning, recsys and LM slices' modules, which the walk must
 # have reached
 required = ["repro_torch." + m for m in (
     "core.minhash", "core.vw", "core.lsh", "optim", "optim.base",
     "optim.schedules", "optim.optimizers", "train.trainer",
     "train.checkpoint", "train.fault", "kernels.ops", "tree",
-    "launch.train", "configs.autoint", "configs.din", "configs.mind")]
+    "launch.train", "configs.autoint", "configs.din", "configs.mind",
+    "models.attention", "models.transformer", "models.moe", "models.layers",
+    "configs.deepseek_7b", "configs.yi_34b", "configs.mistral_large_123b",
+    "configs.llama4_scout", "configs.deepseek_v3_671b")]
 for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab

@@ -95,13 +95,14 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_archs_and_kinds_raise():
-    """What the port still refuses: the LM and GNN archs, an unknown
+    """What the port still refuses: the GNN arch, LM training, an unknown
     interaction and the mesh path of the train launcher."""
-    for arch in ("deepseek-7b", "gatedgcn"):
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            get_arch(arch)
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            build_cell(arch, "train_batch", smoke=True, device="cpu")
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        get_arch("gatedgcn")
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        build_cell("gatedgcn", "train_batch", smoke=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_cell("deepseek-7b", "train_4k", smoke=True, device="cpu")
     with pytest.raises(KeyError, match="no cell"):
         build_cell("wide-deep", "train_4k", smoke=True, device="cpu")
     cfg = dataclasses.replace(get_arch("wide-deep").smoke,
@@ -217,4 +218,4 @@ def test_serve_entry_point(capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "wide-deep", "--smoke", "--requests", "2"])
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "deepseek-7b", "--device", "cpu"])
+        serve.main(["--arch", "gatedgcn", "--device", "cpu"])
