@@ -51,7 +51,15 @@ weights in float32, float32 decode against prefill, each decode step
 writing the cache at pos - 1 only, deepseek-v3's MoE dispatch against a
 per-token loop, and ``launch.serve --arch`` for each arch; the LM path
 runs none of the six kernels (the reference's attention and MoE are plain
-jnp).  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
+jnp).  Phase 11 trains the five LM archs at their published widths in
+bfloat16 (``LM_TRAIN_RUNS``): timed ``train_4k`` steps through
+``build_cell`` / ``init_inputs`` / ``step`` with the published optimizer
+and microbatch count beside their FLOP bound, ``matmul_f32``'s bfloat16
+backward against widened autograd, at depth 2 bfloat16 against float32
+(MoE routing replayed), microbatched against one-batch gradients, remat
+against none and an optimizer step moving every leaf, and ``launch.train
+--arch`` for each arch with a resumed run; no kernel of ours runs there
+either.  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
 
@@ -270,16 +278,67 @@ CHECK_DEPTH, CHECK_TOKENS, LOGIT_MARGIN = 2, 64, 1e-3
 # bfloat16 against float32 on the same weights, per token: ||h_bf16 -
 # h_f32|| / ||h_f32|| of the rms-normed hidden state.  bfloat16 rounds a
 # value by up to 2^-9; ~10 roundings in series a layer, two layers, give
-# ~1% (deepseek-7b on an H100: 1.04e-2 over all tokens).  The median is
-# bounded for every arch, the largest for the dense ones: in an MoE arch a
-# token whose router scores nearly tie may go to another expert in
-# bfloat16 (top-1 in llama4-scout: its whole FFN output changes), a
-# discrete difference, not a rounding one; those tokens are counted and
-# printed.
+# ~1% (deepseek-7b on an H100: 1.04e-2 over all tokens).  The median and
+# the largest are bounded for every arch.  The float32 pass runs first and
+# records each MoE layer's expert choices; the bfloat16 pass routes every
+# token to those experts, weighted by its own bfloat16 router scores there
+# (``replayed_routing``): a token whose scores nearly tie might otherwise go
+# to another expert in bfloat16 (top-1 in llama4-scout: its whole FFN
+# output changes), a discrete difference that would hide a rounding fault
+# in the expert FFN.  How many token-layers free bfloat16 routing would
+# have sent elsewhere is counted and printed, not bounded.
 BF16_REL_L2, BF16_REL_MAX = 3e-2, 1e-1
 # the MoE dispatch against a per-token loop, float32 with TF32 off: the
 # same products in other shapes (cuBLAS may pick another algorithm)
 MOE_ATOL_SHARE = 1e-4
+
+# LM training (phase 11): the train_4k cell of each arch at its published
+# widths in bfloat16, with the published config's optimizer and microbatch
+# count: arch -> (layers, sequence).  Cuts: the batch 256 -> cfg.microbatch
+# sequences, one a microbatch, so that accumulation runs; deepseek-7b 30 ->
+# 8 layers, yi-34b 60 -> 2, mistral-large 88 -> 2, llama4-scout 48 -> 2
+# (both chunked-local: its 8,192 window covers all 4,096 positions, so a
+# local layer computes what a global one would), deepseek-v3 61 -> 2 (1
+# dense + 1 MoE) and its sequence 4,096 -> 2,048 (27.9 GB each of weights
+# and gradients, and its 128 heads' attention backward at 4,096, do not fit
+# 80 GB).
+LM_TRAIN_RUNS = {
+    "deepseek-7b": (8, 4_096),
+    "yi-34b": (2, 4_096),
+    "mistral-large-123b": (2, 4_096),
+    "llama4-scout-17b-a16e": (2, 4_096),
+    "deepseek-v3-671b": (2, 2_048),
+}
+TRAIN_TIMED = 3               # timed steps, after one untimed step
+TRAIN_CLI_STEPS = 4
+# the checks at depth 2: a sequence of 256 in blocks and loss chunks of 128
+TRAIN_CHECK_SEQ, TRAIN_CHECK_BLK = 256, 128
+# bfloat16 against float32 on the same weights and tokens, routing replayed:
+# the loss relative, and each gradient leaf's ||g_bf16 - g_f32|| / ||g_f32||
+# (a leaf whose float32 gradient is under 1e-3 of the largest leaf's, such
+# as llama4-scout's top-1 router, whose true gradient is 0, against that
+# floor).  bfloat16 rounds by 2^-9; the forward's ~1% per token (phase 10)
+# and a backward of as many roundings again put a leaf's gradient at a few
+# percent.
+TRAIN_BF16_LOSS, TRAIN_BF16_GRAD = 1e-2, 1e-1
+# float32: the microbatched gradient against the one-batch gradient, the
+# same sums in another order: at initialisation a projection's gradient is
+# a small difference of large terms, and the rounding grows with m (on an
+# H100: 4.98e-6 at m = 2, 6.25e-6 at m = 4, 1.08e-5 for mistral-large's wk
+# at m = 8), while a slice dropped, doubled or misplaced moves it by ~1/m.
+# remat against none: the same products recomputed.  Both run under
+# deterministic algorithms (the MoE combine adds atomically otherwise).
+MICRO_REL, REMAT_REL = 1e-4, 1e-6
+# gradient-free leaves of the float32 checks: the float32 gradients of the
+# MoE expert stacks (llama4-scout 16.1 GB, deepseek-v3 45 GB) and v3's
+# embedding and head (7.4 GB) do not fit beside its float32 weights (25.9,
+# 55.8 GB); the backward still runs through them
+TRAIN_FROZEN = {
+    "llama4-scout-17b-a16e": ("layers/ffn/w_gate", "layers/ffn/w_up",
+                              "layers/ffn/w_down"),
+    "deepseek-v3-671b": ("layers/ffn/w_gate", "layers/ffn/w_up",
+                         "layers/ffn/w_down", "embed", "out"),
+}
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -340,8 +399,9 @@ def graph_ms(fn, torch, loop: int = 1) -> float:
 def device_breakdown(fn, torch, top: int = 4) -> str:
     """One call of ``fn`` under ``torch.profiler``: wall ms (host clock to
     a synchronize), the kernels' summed device ms and the device's busy
-    share of the wall, and the ``top`` kernels by device time.  "not
-    measured" where the profiler records no device time."""
+    share of the wall, the share of PyTorch's elementwise kernels, and the
+    ``top`` kernels by device time.  "not measured" where the profiler
+    records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -358,8 +418,10 @@ def device_breakdown(fn, torch, top: int = 4) -> str:
     if not kernels:
         return f"wall {wall:.2f} ms; device time not measured (no kernels)"
     busy = sum(k[0] for k in kernels)
+    elementwise = sum(k[0] for k in kernels if "elementwise_kernel" in k[2])
     return (f"wall {wall:.2f} ms, kernels {busy:.2f} ms ({busy / wall:.0%} "
-            f"busy, {sum(k[1] for k in kernels)} launches); top: "
+            f"busy, {sum(k[1] for k in kernels)} launches; elementwise "
+            f"{elementwise:.2f} ms, {elementwise / busy:.0%}); top: "
             + "; ".join(f"{name[:48]} x{n} {ms:.2f} ms"
                         for ms, n, name in kernels[:top]))
 
@@ -1035,6 +1097,9 @@ def run(torch) -> int:
 
     # -- phase 10: the LM family served (no kernel of ours on its path) ---
     lm_serving(torch, dev)
+
+    # -- phase 11: the LM family trained (no kernel of ours either) -------
+    lm_training(torch, dev)
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2623,6 +2688,57 @@ def recsys_family(torch, dev) -> dict:
 
 
 
+class replayed_routing:
+    """Within ``with replayed_routing(moe_lib) as r:``, ``moe_lib.route``
+    records each call's expert ids; after ``r.replay()`` the calls, made
+    in the same order, route to the recorded experts, each token weighted
+    by this call's own router scores there, normalised as ``route`` does.
+    ``r.flips`` counts the token-layers whose free choice differed."""
+
+    def __init__(self, moe_lib):
+        self.moe, self.route = moe_lib, moe_lib.route
+        self.ids, self.at, self.flips = [], None, 0
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def replay(self):
+        self.at = 0
+
+    def _route(self, params, x, cfg):
+        import torch
+        topv, topi = self.route(params, x, cfg)
+        if self.at is None:
+            self.ids.append(topi)
+            return topv, topi
+        ids = self.ids[self.at]
+        self.at += 1
+        self.flips += int((topi.sort(-1).values != ids.sort(-1).values)
+                          .any(-1).sum())
+        logits = x.float() @ params["router"]
+        scores = (torch.sigmoid(logits) if cfg.router == "sigmoid"
+                  else torch.softmax(logits, dim=-1))
+        v = scores.gather(-1, ids)
+        return v / v.sum(-1, keepdim=True).clamp(min=1e-9), ids
+
+
+def as_float32(model, fn):
+    """``fn()`` with every parameter of ``model`` widened to float32 (exact),
+    then each returned to its own type."""
+    types = [p.dtype for p in model.parameters()]
+    for p in model.parameters():
+        p.data = p.data.float()
+    try:
+        return fn()
+    finally:
+        for p, t in zip(model.parameters(), types):
+            p.data = p.data.to(t)
+
+
 def lm_prefill_flops(cfg, batch: int, seq: int) -> float:
     """Matmul FLOPs of one ``forward`` as the reference computes it: every
     projection, every expert on its whole capacity buffer (empty rows
@@ -2850,29 +2966,18 @@ def lm_serving(torch, dev) -> None:
         pre = cut(arch, "prefill_32k", CHECK_DEPTH, 1, CHECK_TOKENS)
         model = pre.init_params(gen)
         tokens = init_inputs(pre, gen)["tokens"]
-        routes, route = [], moe_lib.route
-
-        def recorded(*args):                     # keeps each call's experts
-            out = route(*args)
-            routes.append(out[1])
-            return out
-
-        moe_lib.route = recorded
-        try:
+        cfg32 = dataclasses.replace(pre.config, param_dtype=torch.float32)
+        with replayed_routing(moe_lib) as routing:
+            h32 = as_float32(model, lambda: dataclasses.replace(
+                pre, config=cfg32).step(model, {"tokens": tokens}))
+            routing.replay()
             h16 = pre.step(model, {"tokens": tokens}).float()
-            for p in model.parameters():         # the same weights, float32
-                p.data = p.data.float()
-            cfg32 = dataclasses.replace(pre.config, param_dtype=torch.float32)
-            h32 = dataclasses.replace(pre, config=cfg32).step(
-                model, {"tokens": tokens})
-        finally:
-            moe_lib.route = route
+        flips = routing.flips
+        for p in model.parameters():             # float32 from here on
+            p.data = p.data.float()
         rel = ((h16 - h32).norm(dim=-1) / h32.norm(dim=-1))[0]  # per token
-        half = len(routes) // 2                  # the bf16 run's, then f32's
-        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
-                        .sum()) for a, b in zip(routes[:half], routes[half:]))
         med, worst = float(rel.median()), float(rel.max())
-        if not (med < BF16_REL_L2 and (cfg32.is_moe or worst < BF16_REL_MAX)):
+        if not (med < BF16_REL_L2 and worst < BF16_REL_MAX):
             raise AssertionError(f"{arch}: bfloat16 vs float32 hidden "
                                  f"states, per-token relative L2 median "
                                  f"{med:.3e}, max {worst:.3e}")
@@ -2917,9 +3022,11 @@ def lm_serving(torch, dev) -> None:
         log(f"[lm {arch}] checks at depth {CHECK_DEPTH}, {CHECK_TOKENS} "
             f"tokens, max_memory_allocated {torch.cuda.max_memory_allocated():,}"
             f" B: bfloat16 vs float32 per-token relative L2 median "
-            f"{med:.3e} (bound {BF16_REL_L2}), max {worst:.3e}"
-            + (f" ({flips} token-layers routed to other experts)"
-               if cfg32.is_moe else f" (bound {BF16_REL_MAX})")
+            f"{med:.3e} (bound {BF16_REL_L2}), max {worst:.3e} (bound "
+            f"{BF16_REL_MAX})"
+            + (f", bfloat16 routed as float32 chose (free bfloat16 routing "
+               f"would send {flips} token-layers to other experts)"
+               if cfg32.is_moe else "")
             + f"; float32 decode == prefill argmax at all "
             f"{int(clear.sum())} positions with a top-2 margin > "
             f"{LOGIT_MARGIN}; each step wrote the cache at pos - 1 only, "
@@ -2952,6 +3059,393 @@ def lm_serving(torch, dev) -> None:
         f"{r['prefill_bound']:.1f}), decode {r['decode_ms']:.2f} ms a step "
         f"(bound {r['decode_bound']:.2f}), peak {r['peak']:,} B"
         for a, r in summary.items()))
+
+def lm_train_flops(cfg, seq: int) -> float:
+    """Matmul FLOPs of one microbatch of one sequence as the train step
+    computes it: the forward's products (``lm_prefill_flops``) three times
+    (the forward, and a backward of twice its products), once more where
+    ``cfg.remat`` recomputes each layer in the backward, and the output
+    head: 2·T·d·V forward, 4·T·d·V backward and 2·T·d·V again where the
+    loss chunks are recomputed."""
+    fwd = lm_prefill_flops(cfg, 1, seq)
+    return (4 if cfg.remat else 3) * fwd + 8 * seq * cfg.d_model * cfg.vocab
+
+
+def prune(tree: dict, frozen, prefix: str = "") -> dict:
+    """``tree`` without the leaves whose paths are in ``frozen``."""
+    return {k: prune(v, frozen, f"{prefix}{k}/") if isinstance(v, dict)
+            else v for k, v in tree.items() if f"{prefix}{k}" not in frozen}
+
+
+def merged(part, full):
+    """``full`` with the leaves ``part`` (``full`` pruned) holds taken from
+    ``part``."""
+    if isinstance(full, dict):
+        return {k: merged(part[k], v) if k in part else v
+                for k, v in full.items()}
+    if isinstance(full, list):
+        return [merged(a, b) for a, b in zip(part, full)]
+    return part
+
+
+def lm_training(torch, dev) -> None:
+    """Phase 11: the LM family trained at its published widths in bfloat16,
+    depth, batch and (deepseek-v3) sequence cut as ``LM_TRAIN_RUNS`` says:
+    per arch, steps of the ``train_4k`` cell through ``build_cell`` /
+    ``init_inputs`` / ``step`` with the published config's optimizer and
+    microbatch count, timed beside their FLOP bound, the first loss against
+    ln V + 0.5, a profiler breakdown of a deepseek-7b step; then the card's
+    checks -- ``matmul_f32``'s bfloat16 backward against autograd through
+    float32-widened operands, and at depth 2: bfloat16 against float32 on
+    the same weights (routing replayed), the microbatched gradient against
+    the one-batch gradient, remat against none, and an optimizer step moving
+    every leaf with a gradient -- and ``python -m repro_torch.launch.train
+    --arch`` for each arch at its smoke config, one run resumed from its
+    checkpoints equal to the unbroken run.  No kernel of ours runs here."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputSpec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import (_make_train_step, build_cell,
+                                          init_inputs)
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.base import Optimizer
+    from repro_torch.tree import path_leaves, tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 checks
+    held = torch.cuda.memory_allocated()
+    i32 = torch.int32
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def cell(arch, depth, batch, seq, **changes):
+        """``build_cell(arch, "train_4k")`` at ``depth`` layers (an MoE
+        arch keeps an MoE layer) and ``batch`` x ``seq`` tokens; the
+        optimizer and microbatch count stay the published config's."""
+        prog = build_cell(arch, "train_4k", smoke=False, device=dev)
+        cfg = prog.config
+        cfg = dataclasses.replace(cfg, n_layers=depth, n_dense_layers=min(
+            cfg.n_dense_layers, depth - 1 if cfg.is_moe else 0), **changes)
+        specs = {k: InputSpec((batch, seq), i32) for k in ("tokens",
+                                                             "labels")}
+        return dataclasses.replace(prog, config=cfg, input_specs=specs)
+
+    def opt_name(prog, state):
+        if not prog.fused:
+            return "AdamW"
+        return ("Adafactor, momentum 0.9" if "m" in state
+                else "Adafactor, momentum-free")
+
+    def timed(arch, depth, seq):
+        t_arch = time.perf_counter()
+        m = get_arch(arch).config.microbatch
+        prog = cell(arch, depth, m, seq)
+        cfg = prog.config
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = prog.init_params(gen)
+        params = model.params()
+        opt_state = prog.optimizer.init(params)
+        init_s = sync_s(t0)
+        w_b, s_b = nbytes(tree_leaves(params)), nbytes(tree_leaves(opt_state))
+        name = opt_name(prog, opt_state)
+        batches = [init_inputs(prog, gen) for _ in range(TRAIN_TIMED + 1)]
+        t0 = time.perf_counter()
+        params, opt_state, loss = prog.step(model, params, opt_state,
+                                            batches[0])
+        first_s = sync_s(t0)
+        loss0, want = float(loss), math.log(cfg.vocab) + 0.5
+        if not (math.isfinite(loss0) and abs(loss0 - want) <= 1.0):
+            raise AssertionError(f"{arch} train: loss at step 0 {loss0}, "
+                                 f"not within 1.0 of ln V + 0.5 = {want:.4f}")
+        losses = []
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t0 = time.perf_counter()
+        for batch in batches[1:]:
+            params, opt_state, loss = prog.step(model, params, opt_state,
+                                                batch)
+            losses.append(loss)
+        step_s = sync_s(t0) / TRAIN_TIMED
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries
+        if not all(math.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"{arch} train: losses {losses}")
+        flops = m * lm_train_flops(cfg, seq)
+        bound_ms = flops / BF16_DENSE_FLOPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[lm train {arch}] {depth} of {get_arch(arch).config.n_layers} "
+            f"layers at published widths, bfloat16, batch 256 -> {m} "
+            f"microbatches of 1 x {seq:,}"
+            f"{' (sequence cut from 4,096)' if seq != 4_096 else ''}, "
+            f"{name} (the published config's), remat {cfg.remat}: weights "
+            f"{w_b:,} B and optimizer state {s_b:,} B drawn in {init_s:.1f} "
+            f"s; loss at step 0 {loss0:.4f} (ln V + 0.5 = {want:.4f}), then "
+            + ", ".join(f"{float(x):.4f}" for x in losses)
+            + f"; first step {first_s * 1e3:.1f} ms; {step_s * 1e3:.1f} ms a"
+            f" step ({m * seq / step_s:,.0f} tokens/s; host clock to a "
+            f"synchronize over {TRAIN_TIMED} steps), bound {bound_ms:.1f} ms "
+            f"(operations: {flops:.4e} FLOP at {BF16_DENSE_FLOPS:.3e}/s), "
+            f"{bound_ms / (step_s * 1e3):.1%} of it; max_memory_allocated "
+            f"{peak:,} B, {retries} allocator retries (cache freed to "
+            f"allocate) in the timed steps ({time.perf_counter() - t_arch:.1f}"
+            f" s)")
+        if arch == "deepseek-7b":
+            log(f"[lm train {arch}] one step under the profiler: "
+                + device_breakdown(lambda: prog.step(
+                    model, params, opt_state, batches[1]), torch, top=6))
+        return dict(step_ms=step_s * 1e3, bound_ms=bound_ms, peak=peak,
+                    tokens_s=m * seq / step_s, depth=depth, seq=seq, m=m,
+                    optimizer=name)
+
+    def matmul_check():
+        """``matmul_f32``'s bfloat16 backward on the card (``MatmulF32``
+        over ``aten::bmm.dtype``) against autograd through float32-widened
+        operands: rounding the cotangent moves each term by 2^-9 of it,
+        each result rounds to bfloat16 once on either side, and the two
+        float32 sums of K terms may round in other orders, so |got - want|
+        <= (3 * 2^-9 + 2K * 2^-24) * (|dC| @ |B|ᵀ) (dA; dB likewise)."""
+        g = torch.Generator(device=dev).manual_seed(SEED + 61)
+        a = torch.randn((8, 512, 128), generator=g, device=dev).bfloat16()
+        b = torch.randn((8, 128, 1024), generator=g, device=dev).bfloat16()
+        dc = torch.randn((8, 512, 1024), generator=g, device=dev) * 100
+        a1, b1 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        out = attn.matmul_f32(a1, b1)
+        if not isinstance(out.grad_fn, attn.MatmulF32._backward_cls):
+            raise AssertionError(f"matmul_f32 on bfloat16 CUDA operands: "
+                                 f"grad_fn {out.grad_fn}")
+        out.backward(dc)
+        a2, b2 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        torch.bmm(a2.float(), b2.float()).backward(dc)
+        worst = []
+        for got, want, ref, k in (
+                (a1.grad, a2.grad, torch.bmm(dc.abs(), b.float().abs()
+                                             .transpose(1, 2)), 1024),
+                (b1.grad, b2.grad, torch.bmm(a.float().abs().transpose(1, 2),
+                                             dc.abs()), 512)):
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"matmul_f32 gradient {got.dtype}")
+            share = (got.float() - want.float()).abs() / (
+                (3 * 2**-9 + 2 * k * 2**-24) * ref)
+            worst.append(float(share.max()))
+        if not max(worst) <= 1.0:
+            raise AssertionError(f"matmul_f32 backward: {worst} of its bound")
+        log(f"[lm train] matmul_f32's CUDA route: a bfloat16 backward "
+            f"(8 x 512 x 128 @ 8 x 128 x 1024) through MatmulF32 over "
+            f"aten::bmm.dtype, the cotangent rounded to bfloat16; dA, dB "
+            f"against autograd through float32-widened operands within "
+            f"(3 * 2^-9 + 2K * 2^-24) * (|dC| @ |B|^T): largest share "
+            f"{worst[0]:.3f}, {worst[1]:.3f} of it")
+
+    capture = Optimizer(lambda p: {}, lambda g, s, p: (g, s))
+
+    def grads(cfg, params, inputs, frozen, micro=1):
+        """The gradient of every leaf but ``frozen`` and the loss, through
+        ``_make_train_step`` with an optimizer that hands the gradients
+        back."""
+        step = _make_train_step(
+            lambda p, x: tfm.train_loss(merged(p, tfm.per_layer(params)), x,
+                                        cfg), capture, micro,
+            split=tfm.per_layer)
+        g, _, loss = step(prune(params, frozen), {}, inputs)
+        return dict(path_leaves(g)), float(loss)
+
+    def compare(got, want, bound, what, arch):
+        """Each leaf's ||got - want|| / ||want|| (floored at 1e-3 of the
+        largest leaf's); raises past ``bound``; (median, worst, its leaf)."""
+        norms = {k: float(w.float().norm()) for k, w in want.items()}
+        diffs = {k: float((got[k].float() - w.float()).norm())
+                 for k, w in want.items()}
+        floor = 1e-3 * max(norms.values())
+        rel = {k: diffs[k] / max(norms[k], floor) for k in want}
+        worst = max(rel, key=rel.get)
+        if sorted(got) != sorted(want) or not rel[worst] <= bound:
+            raise AssertionError(f"{arch}: {what}, leaf {worst} relative "
+                                 f"L2 {rel[worst]:.3e} (bound {bound})")
+        return statistics.median(rel.values()), rel[worst], worst
+
+    def exact_checks(arch, params, batch, one, frozen, cfg32, m):
+        """Float32: (3) the microbatched gradient against the one-batch
+        gradient (an MoE arch: against the mean of its slices' gradients,
+        since a microbatch's expert capacity follows its own token count,
+        as the reference's does), (4) remat against none."""
+        g_mb, _ = grads(cfg32, params, batch, frozen, micro=m)
+        if cfg32.is_moe:
+            want = None
+            for i in range(m):
+                g_i, _ = grads(cfg32, params,
+                               {k: v[i:i + 1] for k, v in batch.items()},
+                               frozen)
+                if want is None:
+                    want = g_i
+                else:
+                    for k in want:
+                        want[k].add_(g_i[k])
+                del g_i
+            for v in want.values():
+                v.div_(m)
+        else:
+            want, _ = grads(cfg32, params, batch, frozen)
+        med_mb, worst_mb, _ = compare(want, g_mb, MICRO_REL,
+                                      f"microbatch {m} vs one batch", arch)
+        del want, g_mb
+        # (4) remat vs none
+        g_plain, _ = grads(cfg32, params, one, frozen)
+        g_remat, _ = grads(dataclasses.replace(cfg32, remat=True), params,
+                           one, frozen)
+        med_r, worst_r, _ = compare(g_remat, g_plain, REMAT_REL,
+                                    "remat vs none", arch)
+        moved_from = {k: float(v.norm()) > 0 for k, v in g_remat.items()}
+        del g_remat, g_plain
+        return med_mb, worst_mb, med_r, worst_r, moved_from
+
+    def checks(arch):
+        t_checks = time.perf_counter()
+        m = get_arch(arch).config.microbatch
+        prog = cell(arch, CHECK_DEPTH, m, TRAIN_CHECK_SEQ,
+                    attn_blk=TRAIN_CHECK_BLK, ce_chunk=TRAIN_CHECK_BLK,
+                    remat=False)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 62)
+        model = prog.init_params(gen)
+        batch = init_inputs(prog, gen)
+        one = {k: v[:1] for k, v in batch.items()}
+        frozen = TRAIN_FROZEN.get(arch, ())
+        cfg16 = prog.config
+        cfg32 = dataclasses.replace(cfg16, param_dtype=torch.float32)
+        # (2) bfloat16 vs float32, the float32 pass first
+        with replayed_routing(moe_lib) as routing:
+            g32, l32 = as_float32(model, lambda: grads(
+                cfg32, model.params(), one, frozen))
+            routing.replay()
+            g16, l16 = grads(cfg16, model.params(), one, frozen)
+        loss_rel = abs(l16 - l32) / abs(l32)
+        if not loss_rel <= TRAIN_BF16_LOSS:
+            raise AssertionError(f"{arch}: bfloat16 loss {l16} vs float32 "
+                                 f"{l32}")
+        med16, worst16, leaf16 = compare(g16, g32, TRAIN_BF16_GRAD,
+                                         "bfloat16 vs float32 gradient",
+                                         arch)
+        del g16, g32
+        for p in model.parameters():             # float32 from here on
+            p.data = p.data.float()
+        params = model.params()
+        # (3) and (4) under deterministic algorithms: the MoE combine's
+        # atomic adds would otherwise sum in another order on every run
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            med_mb, worst_mb, med_r, worst_r, moved_from = exact_checks(
+                arch, params, batch, one, frozen, cfg32, m)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        # (5) one step of the published optimizer at its peak rate moves
+        # every leaf that has a gradient
+        part = prune(params, frozen)
+        before = {k: t.clone() for k, t in path_leaves(part)}
+        state = prog.optimizer.init(part)
+        state["count"].fill_(200)
+        step = _make_train_step(
+            lambda p, x: tfm.train_loss(merged(p, tfm.per_layer(params)), x,
+                                        cfg32), prog.optimizer, 1,
+            prog.fused, split=tfm.per_layer)
+        new, state, _ = step(part, state, one)
+        still = [k for k, t in path_leaves(new)
+                 if moved_from[k] and torch.equal(t, before[k])]
+        if still or not any(moved_from.values()):
+            raise AssertionError(f"{arch}: {opt_name(prog, state)} left "
+                                 f"{still} unchanged")
+        log(f"[lm train {arch}] checks at depth {CHECK_DEPTH}, {m} x "
+            f"{TRAIN_CHECK_SEQ} tokens, blocks and loss chunks of "
+            f"{TRAIN_CHECK_BLK}"
+            + (f", gradients of all leaves but {', '.join(frozen)}"
+               if frozen else "")
+            + f", max_memory_allocated {torch.cuda.max_memory_allocated():,}"
+            f" B: bfloat16 vs float32 (1 x {TRAIN_CHECK_SEQ}"
+            + (f", routed as float32 chose; free bfloat16 routing would "
+               f"send {routing.flips} token-layers elsewhere"
+               if cfg16.is_moe else "")
+            + f") loss {l16:.5f} vs {l32:.5f} (relative {loss_rel:.2e}, "
+            f"bound {TRAIN_BF16_LOSS}), gradient relative L2 median "
+            f"{med16:.3e}, max {worst16:.3e} ({leaf16}; bound "
+            f"{TRAIN_BF16_GRAD}); float32 microbatch {m} vs "
+            + ("the mean of its slices' gradients" if cfg32.is_moe
+               else "one batch")
+            + f": median {med_mb:.2e}, max {worst_mb:.2e} (bound "
+            f"{MICRO_REL}); remat vs none: median {med_r:.2e}, max "
+            f"{worst_r:.2e} (bound {REMAT_REL}); one {opt_name(prog, state)} "
+            f"step at count 200 moved all {sum(moved_from.values())} leaves "
+            f"with a gradient ({time.perf_counter() - t_checks:.1f} s)")
+
+    summary = {}
+    matmul_check()
+    for arch, run in LM_TRAIN_RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        summary[arch] = timed(arch, *run)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        checks(arch)
+    torch.cuda.empty_cache()
+
+    first = re.compile(r"(\S+)/train_4k: [\d,]+ params, "
+                       r"optimizer=fused-adafactor")
+    last = re.compile(rf"loss: first=\d+\.\d{{4}} last=\d+\.\d{{4}} "
+                      rf"\((\d+) steps from step (\d+), \d+ stragglers\)")
+
+    def train_run(arch, steps, ckpt_dir=None):
+        out = io.StringIO()
+        argv = ["--arch", arch, "--steps", str(steps), "--seed", str(SEED)]
+        if ckpt_dir:
+            argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+        with contextlib.redirect_stdout(out):
+            state = train_cli.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        if not (first.fullmatch(lines[0]) and last.fullmatch(lines[-1])):
+            raise AssertionError(f"train --arch {arch} printed {lines!r}")
+        return state, lines
+
+    for arch in LM_TRAIN_RUNS:
+        _, lines = train_run(arch, TRAIN_CLI_STEPS)
+        log(f"[lm train CLI] python -m repro_torch.launch.train --arch {arch}"
+            f" --steps {TRAIN_CLI_STEPS}: {' | '.join(lines)}")
+    straight, resumed = SMOKE_DIR / "lm_straight", SMOKE_DIR / "lm_resumed"
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, _ = train_run("yi-34b", TRAIN_CLI_STEPS, str(straight))
+        train_run("yi-34b", TRAIN_CLI_STEPS // 2, str(resumed))
+        b, lines = train_run("yi-34b", TRAIN_CLI_STEPS, str(resumed))
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(straight, ignore_errors=True)
+        shutil.rmtree(resumed, ignore_errors=True)
+    same = [torch.equal(x, y) for (_, x), (_, y) in zip(
+        path_leaves(a), path_leaves(b))]
+    if (int(b.step) != TRAIN_CLI_STEPS or not all(same)
+            or f"from step {TRAIN_CLI_STEPS // 2}" not in lines[-1]):
+        raise AssertionError("train --arch yi-34b: resumed run != the "
+                             "unbroken run")
+    log(f"[lm train CLI] --arch yi-34b --steps {TRAIN_CLI_STEPS} resumed "
+        f"from its step-{TRAIN_CLI_STEPS // 2} checkpoint ({lines[-1]}) == "
+        f"the unbroken run: parameters and AdamW state bit for bit "
+        f"(deterministic algorithms)")
+    log(f"[lm train] {time.perf_counter() - t_phase:.1f} s, {held:,} B held "
+        f"before the phase (peaks include it); " + "; ".join(
+        f"{a}: {r['depth']} layers, {r['m']} x {r['seq']:,}, {r['optimizer']}"
+        f": {r['step_ms']:.1f} ms a step ({r['tokens_s']:,.0f} tokens/s; "
+        f"bound {r['bound_ms']:.1f}), peak {r['peak']:,} B"
+        for a, r in summary.items()))
+
 
 if __name__ == "__main__":
     sys.exit(main())

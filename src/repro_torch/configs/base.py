@@ -12,8 +12,8 @@ smoke)`` gives each step input's shape and ``torch.dtype`` (an
 Ported: the recsys family (Wide & Deep, AutoInt, DIN and MIND in their
 four cells) and the five LM archs (deepseek-7b, yi-34b,
 mistral-large-123b, llama4-scout-17b-a16e, deepseek-v3-671b).  The GNN
-arch of the reference raises ``KeyError`` (``ROADMAP.md`` queue 1, "The
-rest of the repository").
+arch of the reference raises ``KeyError`` (``ROADMAP.md`` queue 1,
+"GNN").
 """
 
 from __future__ import annotations

@@ -1,11 +1,20 @@
 """Step programs per (architecture x shape cell) (port of the recsys and
-LM serving parts of ``repro.launch.steps``).
+LM parts of ``repro.launch.steps``).
 
 ``build_cell(arch_id, cell_name, smoke, device)`` returns a ``CellProgram``
 with the cell's config and input specs, ``init_params(generator)`` (the
 model, on the generator's device) and ``step``, whose arguments follow the
 cell's kind as the reference's do:
 
+  * ``lm_train``:         ``step(model, params, opt_state, inputs) ->
+    (params, opt_state, loss)``, ``transformer.train_loss`` differentiated
+    on the reference's parameter tree, ``cfg.microbatch`` slices of the
+    batch (1 with ``smoke``) accumulated, then the optimizer
+    ``_pick_optimizer`` chose from the parameter count: AdamW (unfused),
+    or in place of it above 50e9 parameters the fused Adafactor.  The
+    step consumes ``params`` and ``opt_state``, as the reference's jitted
+    step donates them: it writes the new parameters (and Adafactor's
+    state) over them, so it holds no second copy;
   * ``lm_prefill``:       ``step(model, inputs) -> (B, S, D)`` final hidden
     states (``transformer.forward``);
   * ``lm_decode``:        ``step(model, inputs) -> ((B,) next tokens,
@@ -15,14 +24,12 @@ cell's kind as the reference's do:
   * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,) logits``
   * ``recsys_train``:     ``step(model, params, opt_state, inputs) ->
     (params, opt_state, loss)``, the fused Adafactor step on the
-    reference's parameter dict; ``model`` gives the config and the
-    frontend's coefficients, and its own parameters are not read.
+    reference's parameter dict, new tensors out.
 
-The LM steps run under ``torch.inference_mode``.  The LM train cell
-(``lm_train``) and the reference's unfused optimizers (AdamW,
-for the LM family below its parameter thresholds) come with the LM
-training slice (``ROADMAP.md`` queue 1); ``build_cell`` refuses it, and a
-cell the arch skips.  Every recsys cell trains with the fused Adafactor.
+For a train cell ``model`` gives the config (and a recsys model the
+frontend's coefficients); its own parameters are not read.  The LM
+serving steps run under ``torch.inference_mode``, the train steps with
+autograd.  ``build_cell`` refuses a cell the arch skips.
 
 ``init_inputs(program, generator)`` draws a batch of inputs in the
 reference's ranges.  The reference's sharding specs and shape-only avals
@@ -33,7 +40,7 @@ path").
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -42,10 +49,13 @@ from repro_torch.configs.base import (get_arch, get_cell, get_config,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import warmup_cosine
+from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.optimizers import adafactor_fused
-from repro_torch.tree import tree_leaves, tree_map, unflatten_like
+from repro_torch.tree import tree_leaves, tree_map
+
+ADAFACTOR_THRESHOLD = 50e9        # parameters above this: Adafactor
+MOMENTUM_FREE_THRESHOLD = 300e9   # and above this, without momentum
 
 
 @dataclasses.dataclass
@@ -58,7 +68,9 @@ class CellProgram:
     device: torch.device
     input_specs: Dict[str, Any]          # tensor inputs only
     n_candidates: Optional[int] = None   # recsys_retrieval
-    optimizer: Optional[Optimizer] = None   # recsys_train, fused
+    optimizer: Optional[Optimizer] = None   # train kinds
+    fused: bool = True                   # the optimizer applies its update
+    microbatch: int = 1                  # gradient-accumulation slices
 
     def init_params(self, generator: torch.Generator):
         """Fresh weights from ``generator``, which must be on the
@@ -91,51 +103,90 @@ class CellProgram:
             return recsys_lib.retrieval_scores(model, inputs,
                                                self.n_candidates)
         params, opt_state, inputs = args
-        loss = lambda p, batch: recsys_lib.recsys_loss(model, batch, p)
-        return _make_train_step(loss, self.optimizer)(params, opt_state,
-                                                      inputs)
+        if self.kind == "lm_train":
+            loss = lambda p, batch: tfm.train_loss(p, batch, self.config)
+            split = tfm.per_layer
+        else:
+            loss = lambda p, batch: recsys_lib.recsys_loss(model, batch, p)
+            split = None
+        return _make_train_step(loss, self.optimizer, self.microbatch,
+                                self.fused, split)(params, opt_state, inputs)
 
 
-def _pick_optimizer() -> Optimizer:
-    """A recsys train cell's optimizer: embedding tables dominate, so a
-    factored second moment (O(V + d) state a table) in place of AdamW's
-    two table-sized states, applied by the fused update."""
-    return adafactor_fused(warmup_cosine(3e-4, 200, 10000), momentum=None)
+def _pick_optimizer(n_params: int, steps: int = 10000, family: str = "lm"
+                    ) -> Tuple[Optimizer, bool]:
+    """(optimizer, fused), the reference's choice: a recsys cell's
+    embedding tables dominate, so a factored second moment (O(V + d) state
+    a table) in place of AdamW's two table-sized states; an LM takes AdamW
+    (weight decay 0.01) up to ``ADAFACTOR_THRESHOLD`` parameters, Adafactor
+    with bfloat16 momentum 0.9 above, and momentum-free Adafactor above
+    ``MOMENTUM_FREE_THRESHOLD``.  A fused optimizer applies its own update;
+    the LM's writes over the old parameters and state."""
+    lr = warmup_cosine(3e-4, 200, steps)
+    if family == "recsys":
+        return adafactor_fused(lr, momentum=None), True
+    if n_params > MOMENTUM_FREE_THRESHOLD:
+        return adafactor_fused(lr, momentum=None, inplace=True), True
+    if n_params > ADAFACTOR_THRESHOLD:
+        return adafactor_fused(lr, momentum=0.9, inplace=True), True
+    return adamw(lr, weight_decay=0.01), False
+
+
+def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``p`` (a tensor outside autograd) made a leaf of autograd whose
+    gradient is added into ``g``."""
+    p.requires_grad_(True)
+    p.grad = g
+    return p
 
 
 def _make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                     microbatch: int = 1) -> Callable:
-    """``step(params, opt_state, inputs) -> (params, opt_state, loss)``,
-    gradients by ``torch.autograd.grad``, applied by a fused optimizer
-    (``update(g, s, p) -> (new_params, new_state)``).  With ``microbatch``
-    m > 1 the batch is split in m along axis 0, the gradients summed over
-    the slices from zero and divided by m in the parameters' type, as the
-    reference's scan does."""
-
-    def grads_of(params, inputs):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(live, inputs)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-        return loss.detach(), unflatten_like(params, list(grads))
+                     microbatch: int = 1, fused: bool = True,
+                     split: Optional[Callable] = None) -> Callable:
+    """``step(params, opt_state, inputs) -> (params, opt_state, loss)``.
+    The gradients go to a zero tree of the parameters' types: ``loss_fn``
+    gets leaves sharing the parameters' storage (``split(params)``'s
+    views, with ``split``) whose ``.grad`` are the matching parts of that
+    tree, so each ``backward()`` adds into it in place.  With
+    ``microbatch`` m > 1 the batch is split in m along axis 0, each slice's
+    gradients added in, in the parameters' type, and the sum divided by m
+    in place: the reference's scan (``a + g.astype(a.dtype)`` from zeros,
+    then ``g / m``) without a second gradient tree.  The loss is the mean
+    over the slices.  A fused optimizer applies its own update
+    (``update(g, s, p) -> (new_params, new_state)``); another returns
+    updates, added to the parameters in place."""
+    m = max(microbatch, 1)
+    views = split or (lambda tree: tree)
 
     def step(params, opt_state, inputs):
-        if microbatch <= 1:
-            loss, grads = grads_of(params, inputs)
-        else:
-            m = microbatch
-            grads = tree_map(torch.zeros_like, params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-            for i in range(m):
-                mb = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
-                      for k, v in inputs.items()}
-                l_i, g_i = grads_of(params, mb)
-                grads = tree_map(lambda a, g: a + g.to(a.dtype), grads, g_i)
-                loss = loss + l_i
-            grads = tree_map(lambda g: (g / m).to(g.dtype), grads)
-            loss = loss / m
+        grads = tree_map(torch.zeros_like, params)
+        live = tree_map(_leaf, views(tree_map(torch.Tensor.detach, params)),
+                        views(grads))
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+        for i in range(m):
+            mb = inputs if m == 1 else {
+                k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
+                for k, v in inputs.items()}
+            l_i = loss_fn(live, mb)
+            l_i.backward()
+            loss = loss + l_i.detach()
+        del live
         with torch.no_grad():
-            params, opt_state = optimizer.update(grads, opt_state, params)
+            if m > 1:
+                for g in tree_leaves(grads):
+                    g.div_(m)
+                loss = loss / m
+            if fused:
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+            else:
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                del grads
+                # apply_updates' (p + u) in p's type, written over p
+                for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+                    p.add_(u)
         return params, opt_state, loss
 
     return step
@@ -147,26 +198,25 @@ def build_cell(arch_id: str, cell_name: str, smoke: bool = False,
     reason = is_skipped(arch_id, cell_name)
     if reason:
         raise ValueError(f"{arch_id} skips {cell_name}: {reason}")
-    if cell.kind == "lm_train":
-        raise NotImplementedError(
-            f"{arch_id}/{cell_name}: LM training is not ported yet "
-            "(ROADMAP.md queue 1, LM training)")
     specs = input_specs(arch_id, cell_name, smoke)
+    cfg = get_config(arch_id, smoke)
     prog = CellProgram(arch_id=arch_id, cell_name=cell_name, kind=cell.kind,
-                       family=get_arch(arch_id).family,
-                       config=get_config(arch_id, smoke),
+                       family=get_arch(arch_id).family, config=cfg,
                        device=resolve_device(device), input_specs=specs,
                        n_candidates=specs.pop("n_candidates", None))
     if cell.kind == "recsys_train":
-        prog.optimizer = _pick_optimizer()
+        prog.optimizer, prog.fused = _pick_optimizer(0, family="recsys")
+    elif cell.kind == "lm_train":
+        prog.optimizer, prog.fused = _pick_optimizer(tfm.count_params(cfg))
+        prog.microbatch = 1 if smoke else cfg.microbatch
     return prog
 
 
 def init_inputs(program: CellProgram,
                 generator: torch.Generator) -> Dict[str, Any]:
     """One batch of random inputs, drawn on the generator's device in the
-    reference's ranges: LM ``tokens`` in [0, vocab), a zero ``cache`` and
-    ``pos`` 2 (int32); recsys ``field_ids`` in [0, vocab), ``hist_ids``
+    reference's ranges: LM ``tokens`` (and a train cell's ``labels``) in
+    [0, vocab), a zero ``cache`` and ``pos`` 2 (int32); recsys ``field_ids`` in [0, vocab), ``hist_ids``
     and ``target_id`` in [0, item_vocab), ``set_ids`` in [0, 2^s),
     ``set_counts`` in [1, set_nnz), ``hist_mask`` ones and ``labels``
     Bernoulli(0.5) in float32."""
@@ -174,9 +224,10 @@ def init_inputs(program: CellProgram,
     dev = generator.device
     if program.family == "lm":
         tok = program.input_specs["tokens"]
-        out = {"tokens": torch.randint(0, cfg.vocab, tok.shape,
-                                       dtype=tok.dtype, generator=generator,
-                                       device=dev)}
+        out = {name: torch.randint(0, cfg.vocab, tok.shape, dtype=tok.dtype,
+                                   generator=generator, device=dev)
+               for name in ("tokens", "labels")
+               if name in program.input_specs}
         if program.kind == "lm_decode":
             layer0 = next(iter(program.input_specs["cache"]["layers"].values()))
             _, B, L = layer0.shape[:3]            # (n, B, L, ...)

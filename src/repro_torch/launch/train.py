@@ -1,20 +1,23 @@
-"""Training launcher (port of ``repro.launch.train``) for the recsys family.
+"""Training launcher (port of ``repro.launch.train``) for the recsys and
+LM families.
 
     PYTHONPATH=src python -m repro_torch.launch.train
-        --arch wide-deep|autoint|din|mind [--cell train_batch]
+        --arch wide-deep|autoint|din|mind|<an LM arch> [--cell CELL]
         [--smoke | --no-smoke] [--steps N] [--ckpt-dir DIR]
         [--ckpt-every N] [--seed S] [--device cuda|cpu]
 
-Builds the arch's train cell (``--no-smoke``: the published widths, 65,536
-rows a step), draws its weights from a generator seeded with ``--seed`` on
-the device, and runs the fused Adafactor step through ``Trainer``:
-checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, resume from
+Builds the arch's train cell (``train_batch``, 65,536 rows a step, or an
+LM's ``train_4k``, 256 x 4,096 tokens, at ``--no-smoke``), draws its
+weights from a generator seeded with ``--seed`` on the device, and runs
+the cell's step (the optimizer ``launch.steps`` picks) through
+``Trainer``: checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, resume from
 its latest checkpoint, heartbeat, bounded-retry restart.  Batch i is drawn
 from a generator seeded with ``seed + 1 + i``, so a resumed run sees the
 batches the unbroken one would; ``--steps`` is the run's total, resumed
-steps included.  Prints the parameter count and the first and last loss.
-``--mesh`` is refused: the multi-GPU mesh path is ``ROADMAP.md`` queue 1
-item 5.
+steps included.  Prints the parameter count, the reference's
+``optimizer=fused-adafactor`` (it prints that for every train cell), and
+the first and last loss.  ``--mesh`` is refused: it is ``ROADMAP.md``'s
+"The multi-GPU mesh path".
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ def _train_cell_name(arch_id: str) -> str:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a recsys arch: wide-deep, autoint, din, mind")
+                    help="a recsys arch (wide-deep, autoint, din, mind) or "
+                         "an LM arch")
     ap.add_argument("--cell", default=None,
-                    help="the train cell (default: the arch's, train_batch)")
+                    help="the train cell (default: the arch's, train_batch "
+                         "or train_4k)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="shrink the arch for a fast smoke run "
@@ -61,19 +66,16 @@ def main(argv=None) -> TrainState:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh} is not ported: the multi-GPU mesh "
-                 "path is ROADMAP.md queue 1 item 5")
+        ap.error(f"--mesh {args.mesh} is not ported: ROADMAP.md queue 1, "
+                 "\"The multi-GPU mesh path\"")
     try:
         get_arch(args.arch)
     except KeyError as e:
         ap.error(e.args[0])
     dev = resolve_device(args.device)
     cell = args.cell or _train_cell_name(args.arch)
-    try:
-        prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
-    except NotImplementedError as e:          # an LM arch's train_4k
-        ap.error(e.args[0])
-    if prog.kind != "recsys_train":
+    prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
+    if prog.kind not in ("recsys_train", "lm_train"):
         ap.error(f"cell {cell!r} of {args.arch} is {prog.kind}, not a train "
                  "cell")
     model = prog.init_params(torch.Generator(device=dev).manual_seed(args.seed))

@@ -14,6 +14,9 @@ reference's ``preferred_element_type=jnp.float32`` does; probabilities
 are cast to the values' type before that product, and MLA's compressed
 output to the activations' type before ``W_uv``, as there.  The per-layer
 ``window`` is a Python int (0 or None: full causal).
+
+``blockwise_attention`` and ``mla_prefill`` are differentiable (LM
+training); ``decode_attention`` and ``mla_decode`` are inference only.
 """
 
 from __future__ import annotations
@@ -27,18 +30,55 @@ from repro_torch.models.layers import apply_rope, rms_norm
 NEG_INF = -1e30
 
 
+def _bmm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cuBLAS's bfloat16 product with float32 accumulation and a float32
+    output (``aten::bmm.dtype``), which has no derivative of its own."""
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class MatmulF32(torch.autograd.Function):
+    """``product(a, b)``, a float32 result from operands of another type,
+    and its gradient: the float32 cotangent rounded to the operands' type,
+    ``dA = product(dC, Bᵀ)`` and ``dB = product(Aᵀ, dC)``, each float32
+    result cast to its operand's type.  Both backward products stay on the
+    tensor cores; the reference's gradient multiplies the float32
+    cotangent unrounded and casts the same way.  ``product`` is a
+    parameter so that the CPU tests can run this backward with a product
+    the CPU has."""
+
+    @staticmethod
+    def forward(ctx, a, b, product):
+        ctx.save_for_backward(a, b)
+        ctx.product = product
+        return product(a, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        g = dc.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ctx.product(g, b.transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = ctx.product(a.transpose(1, 2), g).to(b.dtype)
+        return da, db, None
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` (3-D operands, any strides cuBLAS takes) with a
     float32 result.  Which product runs follows the operands' type and
     device: float32 operands multiply as they are; bfloat16 on CUDA runs
     cuBLAS's bfloat16 product with float32 accumulation and a float32
-    output (``aten::bmm.dtype``); bfloat16 on the CPU, which has no
-    ``bmm.dtype`` kernel, widens both operands to float32 first -- exact,
-    since a product of two bfloat16 values is exact in float32."""
+    output (``aten::bmm.dtype``), through ``MatmulF32`` where a gradient
+    is wanted; bfloat16 on the CPU, which has no ``bmm.dtype`` kernel,
+    widens both operands to float32 first -- exact, since a product of two
+    bfloat16 values is exact in float32."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return MatmulF32.apply(a, b, _bmm_out_f32)
+        return _bmm_out_f32(a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -78,6 +118,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kh = k.permute(0, 2, 1, 3).reshape(BH, Skv, hd)
     vh = v.permute(0, 2, 1, 3).reshape(BH, Skv, hd_v)
     dev = q.device
+    # under autograd the loop runs out of place (its backward needs every
+    # block's scores); in inference the same arithmetic runs in place
+    train = torch.is_grad_enabled()
     outs = []
     for qi in range(Sq // blk_q):
         q_i = qh[:, qi * rows:(qi + 1) * rows]
@@ -88,16 +131,22 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for ki in range(Skv // blk_kv):
             ks = slice(ki * blk_kv, (ki + 1) * blk_kv)
             k_idx = ki * blk_kv + torch.arange(blk_kv, device=dev)
-            s = matmul_f32(q_i, kh[:, ks].transpose(1, 2)).mul_(scale)
-            mask = _block_mask(q_idx, k_idx, window)
-            s.view(BH, blk_q, G, blk_kv).masked_fill_(
-                ~mask[None, :, None, :], NEG_INF)
+            s = matmul_f32(q_i, kh[:, ks].transpose(1, 2))
+            valid = _block_mask(q_idx, k_idx, window)[None, :, None, :]
+            if train:
+                s = torch.where(valid, (s * scale).view(BH, blk_q, G, blk_kv),
+                                NEG_INF).view(BH, rows, blk_kv)
+            else:
+                s.mul_(scale).view(BH, blk_q, G, blk_kv).masked_fill_(
+                    ~valid, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
-            p = s.sub_(m_new[..., None]).exp_()
+            p = (torch.exp(s - m_new[..., None]) if train
+                 else s.sub_(m_new[..., None]).exp_())
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             pv = matmul_f32(p.to(v.dtype), vh[:, ks])
-            acc = acc.mul_(corr[..., None]).add_(pv)
+            acc = (acc * corr[..., None] + pv if train
+                   else acc.mul_(corr[..., None]).add_(pv))
             m = m_new
         outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
     out = torch.cat(outs, dim=1).reshape(B, Hkv, Sq, G, hd_v)

@@ -1,11 +1,17 @@
-"""Decoder-only LM family (port of the serving part of
-``repro.models.transformer``): dense GQA, chunked-local (llama4-style),
-MLA and MoE variants, for the five LM archs.
+"""Decoder-only LM family (port of ``repro.models.transformer``): dense
+GQA, chunked-local (llama4-style), MLA and MoE variants, for the five LM
+archs.
 
-Two entry points:
+Three entry points:
 
+  * ``train_loss(params, batch, cfg)`` -- next-token cross-entropy,
+    ``chunked_ce_loss`` over ``forward``: float32 logits one (B, chunk, V)
+    slice at a time, recomputed in the backward, so a float32 (B, S, V)
+    tensor is never held;
   * ``forward(params, tokens, cfg)`` -- prefill, tokens (B, S) -> final
-    hidden states (B, S, D);
+    hidden states (B, S, D); with ``cfg.remat`` each layer's activations
+    are recomputed in the backward instead of kept, as the reference's
+    ``jax.checkpoint`` does;
   * ``serve_step(params, cache, tokens, pos, cfg)`` -- one greedy decode
     step over a KV cache (GQA cache or compressed MLA cache), written in
     place at ``pos - 1`` and returned, so the decode loop owns one buffer.
@@ -15,10 +21,10 @@ Parameters keep the reference's tree: ``embed``, ``out``, ``final_norm``,
 MoE arch), each layer leaf stacked along axis 0 as the reference's
 ``vmap`` lays it out, so a layer is a view ``leaf[i]``.  ``TransformerModel``
 holds the tree as frozen parameters; the functions take the tree
-(``model.params()``).  The caller runs them under ``torch.inference_mode``.
-Training (``train_loss``, ``chunked_ce_loss``) comes with the LM training
-slice (``ROADMAP.md`` queue 1); the reference's ``constrain`` calls are
-no-ops without a mesh and are left out.
+(``model.params()``).  Serving runs them under ``torch.inference_mode``;
+training differentiates ``train_loss`` with respect to a tree of leaves
+that require a gradient.  The reference's ``constrain`` calls are no-ops
+without a mesh and are left out.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (blockwise_attention,
@@ -187,8 +194,29 @@ def count_active_params(cfg: TransformerConfig) -> int:
     return total - n_moe_layers * (E - k) * 3 * cfg.d_model * cfg.moe.d_ff
 
 
-def _layer(stack: Dict, i: int) -> Dict:
+def _layer(stack, i: int) -> Dict:
+    """Layer ``i`` of a stack: views of its stacked leaves, or the ``i``-th
+    tree of a stack ``per_layer`` split."""
+    if isinstance(stack, list):
+        return stack[i]
     return tree_map(lambda t: t[i], stack)
+
+
+def per_layer(params: Dict) -> Dict:
+    """``params`` with each layer stack a list of its layers' trees, views
+    of the stacked leaves; ``forward`` and ``train_loss`` take either form.
+    Training makes those views leaves of autograd, so that a layer's
+    products use its weights directly and the backward adds each weight's
+    gradient into its ``.grad`` as soon as it is made: a view taken inside
+    the graph holds it until the view's own node runs, after the products
+    below it (for deepseek-v3, three 7.5 GB expert-stack gradients at
+    once)."""
+    out = dict(params)
+    for key in ("dense_layers", "layers"):
+        if key in params:
+            n = tree_leaves(params[key])[0].shape[0]
+            out[key] = [_layer(params[key], i) for i in range(n)]
+    return out
 
 
 def _stacks(cfg: TransformerConfig):
@@ -203,7 +231,7 @@ def _stacks(cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _layer_window(cfg: TransformerConfig, idx: int) -> int:
@@ -241,23 +269,75 @@ def _ffn_block(p: Dict, x: torch.Tensor, cfg: TransformerConfig,
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def _recomputed(fn: Callable, *args):
+    """``fn(*args)``; where a gradient is wanted, its activations are
+    recomputed in the backward instead of kept (the reference's
+    ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _layer_fn(x: torch.Tensor, p: Dict, cfg: TransformerConfig,
+              positions: torch.Tensor, window: int,
+              moe_layer: bool) -> torch.Tensor:
+    x = x + _attn_block(p["attn"], rms_norm(x, p["ln1"]), cfg, positions,
+                        window)
+    return x + _ffn_block(p["ffn"], rms_norm(x, p["ln2"]), cfg, moe_layer)
+
+
 def forward(params: Dict, tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """tokens (B, S) -> final hidden states (B, S, D): the dense-FFN
     layers, then the rest, each ``x + attn(norm(x))``, ``x +
-    ffn(norm(x))``."""
+    ffn(norm(x))``, each recomputed in the backward with ``cfg.remat``."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     x = params["embed"][tokens.long()]
     for key, n, moe_layer, first in _stacks(cfg):
         for i in range(n):
-            p = _layer(params[key], i)
-            window = _layer_window(cfg, first + i)
-            x = x + _attn_block(p["attn"], rms_norm(x, p["ln1"]), cfg,
-                                positions, window)
-            x = x + _ffn_block(p["ffn"], rms_norm(x, p["ln2"]), cfg,
-                               moe_layer)
+            args = (x, _layer(params[key], i), cfg, positions,
+                    _layer_window(cfg, first + i), moe_layer)
+            x = _recomputed(_layer_fn, *args) if cfg.remat else _layer_fn(
+                *args)
     return rms_norm(x, params["final_norm"])
+
+
+def _chunk_ce(x: torch.Tensor, w_out: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one (B, chunk) slice, its logits float32."""
+    logits = (x @ w_out).float()
+    m = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - correct).sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, w_out: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean next-token cross-entropy of x (B, S, D) through ``w_out`` (D,
+    V) against labels (B, S), ``chunk`` positions at a time: each (B,
+    chunk, V) float32 logits slice is made, reduced and dropped, and made
+    again in the backward."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + _recomputed(_chunk_ce, x[:, sl], w_out,
+                                    labels[:, sl])
+    return total / (B * S)
+
+
+def train_loss(params: Dict, batch: Dict,
+               cfg: TransformerConfig) -> torch.Tensor:
+    """batch: {"tokens": (B, S) int32, "labels": (B, S) int32} -> the
+    0-d float32 mean loss."""
+    x = forward(params, batch["tokens"], cfg)
+    return chunked_ce_loss(x, params["out"], batch["labels"], cfg.ce_chunk)
 
 
 # ---------------------------------------------------------------------------

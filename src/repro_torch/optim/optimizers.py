@@ -16,8 +16,12 @@ full ``v`` for the rest, and bfloat16 momentum when ``momentum`` is set.
 (new_params, new_state)``) and updates a leaf of three or more dimensions
 whose axis 0 holds at least ``scan_min_leading`` slices one slice at a
 time, as the reference's ``lax.scan`` does: the factored statistics are
-exact per slice and the RMS clip is per slice.  Both keep the reference's
-arithmetic in its order (``eps`` added to g^2, ``max(mean(vr), eps)``).
+exact per slice and the RMS clip is per slice.  A slice of more than
+``UPDATE_CHUNK`` elements goes in chunks of whole matrices (the RMS summed
+over the chunks), and ``inplace`` writes the new parameters and state over
+the old: together they fit an LM's step on one card.  Both keep the
+reference's arithmetic in its order (``eps`` added to g^2,
+``max(mean(vr), eps)``).
 """
 
 from __future__ import annotations
@@ -103,32 +107,59 @@ def _adafactor_state(params, momentum, momentum_dtype):
     return state
 
 
-def _precondition(g32, vr, vc, beta2, eps, clip_threshold):
-    """One leaf (or slice): the new statistics and the clipped direction.
-    ``vr`` is None for an unfactored leaf, whose ``v`` is passed as ``vc``."""
-    g2 = torch.square(g32) + eps
+def _statistics(g32, vr, vc, beta2, eps):
+    """One leaf, slice or chunk: the new second-moment statistics.  ``vr``
+    is None for an unfactored leaf, whose ``v`` is passed as ``vc``."""
+    g2 = torch.square(g32).add_(eps)
     if vr is not None:
-        vr = beta2 * vr + (1 - beta2) * g2.mean(-1)
-        vc = beta2 * vc + (1 - beta2) * g2.mean(-2)
+        return (beta2 * vr + (1 - beta2) * g2.mean(-1),
+                beta2 * vc + (1 - beta2) * g2.mean(-2))
+    return None, beta2 * vc + (1 - beta2) * g2
+
+
+def _direction(g32, vr, vc, eps):
+    """g / sqrt(v) from the new statistics, before the clip."""
+    if vr is not None:
         denom_r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
-        precond = g32 / (torch.sqrt(denom_r)[..., None]
-                         * torch.sqrt(vc)[..., None, :] + eps)
+        denom = (torch.sqrt(denom_r)[..., None]
+                 * torch.sqrt(vc)[..., None, :]).add_(eps)
     else:
-        vc = beta2 * vc + (1 - beta2) * g2
-        precond = g32 / (torch.sqrt(vc) + eps)
+        denom = torch.sqrt(vc).add_(eps)
+    return torch.div(g32, denom, out=denom)
+
+
+def _clip(rms, clip_threshold):
+    """The divisor that clips a direction of this RMS to the threshold."""
+    return torch.clamp(rms / clip_threshold, min=1.0)
+
+
+def _precondition(g32, vr, vc, beta2, eps, clip_threshold):
+    """One leaf (or slice): the new statistics and the clipped direction."""
+    vr, vc = _statistics(g32, vr, vc, beta2, eps)
+    precond = _direction(g32, vr, vc, eps)
     rms = torch.sqrt(torch.mean(torch.square(precond)) + 1e-30)
-    return vr, vc, precond / torch.clamp(rms / clip_threshold, min=1.0)
+    return vr, vc, precond.div_(_clip(rms, clip_threshold))
+
+
+# float32 elements of a slice the fused update holds at once (1 GiB): a
+# larger slice of three or more dimensions is updated in chunks along its
+# leading axes, in two passes (its statistics and RMS, then the step), so
+# a 7.5 GB bfloat16 expert stack never has whole-slice float32 temporaries
+UPDATE_CHUNK = 1 << 28
 
 
 def adafactor_fused(lr: LR, momentum: Optional[float] = None,
                     momentum_dtype: torch.dtype = torch.bfloat16,
                     decay: float = 0.8, eps: float = 1e-30,
                     clip_threshold: float = 1.0,
-                    scan_min_leading: int = 8) -> Optimizer:
+                    scan_min_leading: int = 8,
+                    inplace: bool = False) -> Optimizer:
     """Adafactor fused with the parameter apply, leaves of >= 3 dimensions
     and >= ``scan_min_leading`` slices updated slice by slice (see the
     module docstring).  ``update(grads, state, params)`` returns
-    ``(new_params, new_state)``."""
+    ``(new_params, new_state)``; with ``inplace`` they are ``params`` and
+    ``state``'s own tensors, written over (the reference's train step
+    donates both), so a step holds no second copy of either."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -139,30 +170,68 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
         beta2 = _beta2(count, decay)
         step = lr_fn(state["count"])
 
-        def slice_update(g, p, vr, vc, m):
-            vr, vc, precond = _precondition(g.to(torch.float32), vr, vc,
-                                            beta2, eps, clip_threshold)
+        def apply(p, precond, m, out_p, out_m):
+            """Momentum and the step on one slice or chunk, written into
+            ``out_p`` / ``out_m``."""
             if m is not None:
-                m = (momentum * m.to(torch.float32)
-                     + (1 - momentum) * precond).to(momentum_dtype)
-                precond = m.to(torch.float32)
-            new_p = (p.to(torch.float32) - step * precond).to(p.dtype)
-            return new_p, vr, vc, m
+                # momentum * m + (1 - momentum) * precond, rounded to
+                # momentum_dtype, and the step from the rounded value
+                m32 = m.to(torch.float32, copy=True).mul_(momentum)
+                out_m.copy_(m32.add_(precond.mul_(1 - momentum)))
+                precond = m32.copy_(out_m)
+            upd = precond.mul_(step)
+            out_p.copy_(torch.sub(p.to(torch.float32), upd, out=upd))
+
+        def slice_update(g, p, vr, vc, m, out):
+            out_p, out_vr, out_vc, out_m = out
+            if p.dim() < 3 or p.numel() <= UPDATE_CHUNK:
+                nvr, nvc, precond = _precondition(
+                    g.to(torch.float32), vr, vc, beta2, eps, clip_threshold)
+                if nvr is not None:
+                    out_vr.copy_(nvr)
+                out_vc.copy_(nvc)
+                apply(p, precond, m, out_p, out_m)
+                return
+            # chunks of whole matrices along the leading axes: the
+            # factored statistics stay exact per chunk; the clip takes the
+            # RMS of the whole slice, so the step waits for a second pass
+            r, c = p.shape[-2:]
+            mats = lambda t: None if t is None else t.view(-1, r, c)
+            vecs = lambda t, n: t.view(-1, n)
+            g3, p3, m3, op3, om3 = map(mats, (g, p, m, out_p, out_m))
+            vr2, vc2 = vecs(vr, r), vecs(vc, c)
+            ovr2, ovc2 = vecs(out_vr, r), vecs(out_vc, c)
+            per = max(1, UPDATE_CHUNK // (r * c))
+            chunks = [slice(a, a + per) for a in range(0, g3.shape[0], per)]
+            ssq = torch.zeros((), dtype=torch.float32, device=p.device)
+            for sl in chunks:
+                g32 = g3[sl].to(torch.float32)
+                nvr, nvc = _statistics(g32, vr2[sl], vc2[sl], beta2, eps)
+                ovr2[sl].copy_(nvr)
+                ovc2[sl].copy_(nvc)
+                ssq += torch.square(_direction(g32, nvr, nvc, eps)).sum()
+            clip = _clip(torch.sqrt(ssq / p.numel() + 1e-30),
+                         clip_threshold)
+            for sl in chunks:
+                precond = _direction(g3[sl].to(torch.float32), ovr2[sl],
+                                     ovc2[sl], eps).div_(clip)
+                apply(p3[sl], precond, None if m3 is None else m3[sl],
+                      op3[sl], None if om3 is None else om3[sl])
 
         def leaf(g, p, v, m):
             vr, vc = v.get("vr"), v.get("vc", v.get("v"))
+            outs = (p, vr, vc, m)
+            if not inplace:
+                outs = tuple(None if t is None else torch.empty_like(t)
+                             for t in outs)
             if p.dim() >= 3 and p.shape[0] >= scan_min_leading:
-                new_p, nvr, nvc = (torch.empty_like(p), torch.empty_like(vr),
-                                   torch.empty_like(vc))
-                nm = None if m is None else torch.empty_like(m)
+                pick = lambda t, i: None if t is None else t[i]
                 for i in range(p.shape[0]):
-                    out = slice_update(g[i], p[i], vr[i], vc[i],
-                                       None if m is None else m[i])
-                    new_p[i], nvr[i], nvc[i] = out[:3]
-                    if nm is not None:
-                        nm[i] = out[3]
+                    slice_update(g[i], p[i], vr[i], vc[i], pick(m, i),
+                                 [pick(t, i) for t in outs])
             else:
-                new_p, nvr, nvc, nm = slice_update(g, p, vr, vc, m)
+                slice_update(g, p, vr, vc, m, outs)
+            new_p, nvr, nvc, nm = outs
             return new_p, ({"vr": nvr, "vc": nvc} if "vr" in v
                            else {"v": nvc}), nm
 

@@ -95,14 +95,15 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_archs_and_kinds_raise():
-    """What the port still refuses: the GNN arch, LM training, an unknown
-    interaction and the mesh path of the train launcher."""
+    """What the port still refuses: the GNN arch (its config, its cell and
+    its training), an unknown interaction and the mesh path of the train
+    launcher."""
     with pytest.raises(KeyError, match="ROADMAP.md"):
         get_arch("gatedgcn")
     with pytest.raises(KeyError, match="ROADMAP.md"):
         build_cell("gatedgcn", "train_batch", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_cell("deepseek-7b", "train_4k", smoke=True, device="cpu")
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "gatedgcn", "--device", "cpu"])
     with pytest.raises(KeyError, match="no cell"):
         build_cell("wide-deep", "train_4k", smoke=True, device="cpu")
     cfg = dataclasses.replace(get_arch("wide-deep").smoke,

@@ -296,9 +296,9 @@ def test_train_launcher_resumes(tmp_path, capsys):
 def test_train_launcher_refuses_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "din", "--mesh", "debug", "--device", "cpu"])
-    assert "ROADMAP.md queue 1 item 5" in capsys.readouterr().err
+    assert "The multi-GPU mesh path" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        t_train.main(["--arch", "deepseek-7b", "--device", "cpu"])
+        t_train.main(["--arch", "gatedgcn", "--device", "cpu"])
     assert "ROADMAP.md" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "din", "--cell", "serve_p99", "--device",
