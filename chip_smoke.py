@@ -59,7 +59,14 @@ backward against widened autograd, at depth 2 bfloat16 against float32
 (MoE routing replayed), microbatched against one-batch gradients, remat
 against none and an optimizer step moving every leaf, and ``launch.train
 --arch`` for each arch with a resumed run; no kernel of ours runs there
-either.  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
+either.  Phase 12 trains GatedGCN at its published config (16 layers, d
+70, remat, float32) in its four cells (``ogb_products`` cut by
+``OGB_CUT``, ``minibatch_lg`` on subgraphs that ``neighbor_sample`` draws
+from a reddit-size CSR graph on the card, its time and invariants
+checked), each step timed beside ``gnn_bound``, then the layer against a
+float64 oracle, remat against none and a resumed ``launch.train --arch
+gatedgcn`` against the unbroken run under deterministic algorithms; no
+kernel of ours either (the reference's scatter is plain jnp).  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
 
@@ -339,6 +346,33 @@ TRAIN_FROZEN = {
     "deepseek-v3-671b": ("layers/ffn/w_gate", "layers/ffn/w_up",
                          "layers/ffn/w_down", "embed", "out"),
 }
+
+# GNN training (phase 12): GatedGCN's published config (16 layers, d_hidden
+# 70, remat, float32, AdamW) in its four cells, TF32 off.  full_graph_sm
+# (cora: 2,708 x 10,556, padded 3,072 x 10,752, d_feat 1,433), molecule
+# (128 graphs of 30 nodes, 8,192 edges) and minibatch_lg (1,024 seeds at
+# fanouts (15, 10) sampled from a reddit-size graph: 169,984 nodes, 168,960
+# edges, d_feat 602) run whole.  ogb_products (2,449,029 nodes, 61,859,140
+# edges) does not fit one card: one (E, 70) float32 tensor is 17.32 GB at
+# its padded 61,859,328 edges, and the remat stash of e alone 16 of them.
+# Cut: nodes and edges divided by one factor, OGB_CUT, so its mean degree
+# (25.3), d_feat 100, 47 classes and 16 layers stay.  Reckoning: a step
+# holds the stash (e at the input of 15 layers, the first one's a
+# broadcast) and one layer's recompute and backward (~10 saved (E, 70)
+# tensors and ~4 gradients): ~29 x 280 B an edge, ~63 GB at 1/8 (7,732,392
+# edges).  Measured on an NVIDIA H100 80GB HBM3 (700 W): an allocator peak
+# of 64.76 GB at 1/8, 8,375 B an edge; 1/7 would need ~74 GB.
+OGB_CUT = 8
+GNN_TIMED = 3                 # timed steps, after one untimed step
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+GNN_CLI_STEPS = 4
+# the float32 layer on the card against a float64 oracle, at the toy graph
+# of tests/test_gnn.py: ~20 float32 roundings in series, values O(1)
+GNN_ORACLE_TOL = 1e-5
+# the loss in default mode (atomic scatter-adds, an order that changes
+# from run to run) against deterministic algorithms: sums of ~25 terms a
+# node, 16 layers, a mean over the nodes; ~1e-7 expected
+GNN_DET_REL = 1e-5
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -1100,6 +1134,9 @@ def run(torch) -> int:
 
     # -- phase 11: the LM family trained (no kernel of ours either) -------
     lm_training(torch, dev)
+
+    # -- phase 12: the GNN family trained (no kernel of ours on its path) -
+    gnn_training(torch, dev)
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3445,6 +3482,421 @@ def lm_training(torch, dev) -> None:
         f": {r['step_ms']:.1f} ms a step ({r['tokens_s']:,.0f} tokens/s; "
         f"bound {r['bound_ms']:.1f}), peak {r['peak']:,} B"
         for a, r in summary.items()))
+
+
+def gnn_bound(hw, cfg, n: int, e: int) -> tuple:
+    """The least time of one GatedGCN train step on ``n`` nodes and ``e``
+    edges: the larger of (a) the layer's own products, 2·d²·(4E + N) a
+    layer forward (A, B, C and V on the edge rows, U on the node rows), x 4
+    with remat (the forward, its recompute, and a backward of twice its
+    products), at the float32 FMA peak (TF32 off), and (b) the edge
+    tensors' least traffic: each layer's forward, run twice with remat,
+    reads e and writes e' (2 x 4d B an edge each time), its backward reads
+    e and the gradient of e' and writes the gradient of e (3 x 4d B), and
+    each of the three reads src, dst and the edge mask (12 B an edge):
+    L·E·(28d + 36) B, at the HBM rate.  Input embedding and head left out
+    (a lower bound still).  Returns (ms, "operations" | "bytes", FLOPs,
+    bytes)."""
+    d, L = cfg.d_hidden, cfg.n_layers
+    flops = L * 2 * d * d * (4 * e + n) * (4 if cfg.remat else 3)
+    nbytes = L * e * (28 * d + 36)
+    t_ops = flops / hw.PEAK_FLOPS_F32 * 1e3
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")) + (flops, nbytes)
+
+
+def gnn_oracle(np, n, src, dst, h, e, lp):
+    """``tests/test_gnn.py``'s dense oracle of one GatedGCN layer in
+    float64 numpy (``np.add.at`` for the scatters): (h', e')."""
+    hs, hd = h[src], h[dst]
+    e_np = hd @ lp["A"] + hs @ lp["B"] + e @ lp["C"]
+    gate = 1 / (1 + np.exp(-e_np))
+    gate_sum = np.zeros((n, h.shape[1]))
+    np.add.at(gate_sum, dst, gate)
+    msg = gate / (gate_sum[dst] + 1e-6) * (hs @ lp["V"])
+    agg = np.zeros((n, h.shape[1]))
+    np.add.at(agg, dst, msg)
+
+    def norm(x, w):
+        return x / np.sqrt(np.mean(x * x, -1, keepdims=True) + 1e-6) * w
+
+    return (h + np.maximum(norm(h @ lp["U"] + agg, lp["ln_h"]), 0),
+            e + np.maximum(norm(e_np, lp["ln_e"]), 0))
+
+
+def gnn_training(torch, dev) -> None:
+    """Phase 12: GatedGCN trained at its published config in its four
+    cells through ``build_cell`` / ``init_inputs`` / ``step`` -- full_graph_sm
+    and molecule as ``init_inputs`` draws them, minibatch_lg on subgraphs
+    that ``neighbor_sample`` draws from a reddit-size CSR graph on the card
+    (its time and invariants checked), ogb_products cut by ``OGB_CUT`` --
+    each timed beside its bound (``gnn_bound``) and the reference's
+    ``model_flops_for``, with its allocator peak, a profiler breakdown and
+    its loss in default mode against deterministic algorithms; then the
+    layer against a float64 oracle, remat against none bit for bit, a step
+    moving every leaf, and ``python -m repro_torch.launch.train --arch
+    gatedgcn`` in three cells, a resumed run == the unbroken one.  No
+    kernel of ours runs here: the reference's segment_sum is plain jnp."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs.base import InputSpec, _pad512, get_cell
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import build_cell, init_inputs
+    from repro_torch.models import gnn
+    from repro_torch.roofline import hardware as hw
+    from repro_torch.roofline.analysis import model_flops_for
+    from repro_torch.tree import path_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32
+    held = torch.cuda.memory_allocated()
+    i32, f32 = torch.int32, torch.float32
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def deterministic():
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    # -- the layer against a float64 oracle (tests/test_gnn.py's graph) --
+    rng = np.random.default_rng(0)
+    adj = rng.random((12, 12)) < 0.4
+    np.fill_diagonal(adj, False)
+    src, dst = (a.astype(np.int32) for a in np.nonzero(adj))
+    worst = 0.0
+    for d in (8, 70):
+        cfg1 = gnn.GNNConfig("oracle", 1, d, d, 2)
+        model = gnn.init_gnn_params(cfg1, torch.Generator(
+            device=dev).manual_seed(SEED + 70 + d))
+        lp = {k: v[0] for k, v in model.params()["layers"].items()}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71 + d)
+        h = torch.randn((12, d), generator=gen, device=dev)
+        e = torch.randn((len(src), d), generator=gen, device=dev)
+        got = gnn.gatedgcn_layer(lp, h, e, torch.from_numpy(src).to(dev),
+                                 torch.from_numpy(dst).to(dev),
+                                 torch.ones(len(src), device=dev), 12)
+        want = gnn_oracle(np, 12, src, dst, h.double().cpu().numpy(),
+                          e.double().cpu().numpy(),
+                          {k: v.double().cpu().numpy()
+                           for k, v in lp.items()})
+        for g, w in zip(got, want):
+            err = float(np.abs(g.double().cpu().numpy() - w).max()
+                        / max(1.0, float(np.abs(w).max())))
+            worst = max(worst, err)
+    if not worst <= GNN_ORACLE_TOL:
+        raise AssertionError(f"gatedgcn_layer vs float64 oracle: {worst}")
+    log(f"[gnn] gatedgcn_layer (float32, the card) vs a float64 dense "
+        f"oracle on tests/test_gnn.py's 12-node graph ({len(src)} edges) "
+        f"at d = 8 and 70: largest |diff| / max(1, |oracle|) {worst:.2e} "
+        f"(bound {GNN_ORACLE_TOL})")
+
+    def loss_gap(prog, model, batch):
+        """The loss in default mode and under deterministic algorithms,
+        the same weights and batch: their relative difference."""
+        with torch.no_grad():
+            a = float(gnn.gnn_loss(model.params(), batch, prog.config))
+            with deterministic():
+                b = float(gnn.gnn_loss(model.params(), batch, prog.config))
+        gap = abs(a - b) / abs(b)
+        if not gap <= GNN_DET_REL:
+            raise AssertionError(f"{prog.cell_name}: default-mode loss {a} "
+                                 f"vs deterministic {b}")
+        return gap
+
+    def timed(name, prog, batches, note):
+        """Untimed step, then ``GNN_TIMED`` timed ones, on ``batches``
+        (one more for the profiled step), weights from a seed."""
+        t_cell = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = prog.config
+        model = prog.init_params(torch.Generator(device=dev).manual_seed(
+            SEED + 80))
+        params = model.params()
+        state = prog.optimizer.init(params)
+        b0 = batches[0]
+        n_nodes = b0["node_feats"].shape[0]
+        n_edges = int(b0["edge_mask"].sum())
+        gap = loss_gap(prog, model, b0)
+        t0 = time.perf_counter()
+        params, state, loss = prog.step(model, params, state, b0)
+        first_s = sync_s(t0)
+        loss0 = float(loss)
+        if not math.isfinite(loss0):
+            raise AssertionError(f"gatedgcn/{name}: loss at step 0 {loss0}")
+        losses = []
+        t0 = time.perf_counter()
+        for batch in batches[1:GNN_TIMED + 1]:
+            params, state, loss = prog.step(model, params, state, batch)
+            losses.append(loss)
+        step_s = sync_s(t0) / GNN_TIMED
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"gatedgcn/{name}: losses {losses}")
+        bound_ms, by, flops, nbytes = gnn_bound(hw, cfg, n_nodes, n_edges)
+        specs = {k: InputSpec(tuple(v.shape), v.dtype) for k, v in b0.items()}
+        ref_flops = model_flops_for(dataclasses.replace(prog,
+                                                        input_specs=specs))
+        profile = device_breakdown(lambda: prog.step(
+            model, params, state, batches[-1]), torch, top=4)
+        step_ms = step_s * 1e3
+        log(f"[gnn {name}] {note}; {cfg.n_layers} layers, d "
+            f"{cfg.d_hidden}, remat {cfg.remat}, {str(cfg.param_dtype)[6:]}, "
+            f"AdamW: "
+            f"loss at step 0 {loss0:.4f}, then "
+            + ", ".join(f"{float(x):.4f}" for x in losses)
+            + f"; first step {first_s * 1e3:.1f} ms; {step_ms:.2f} ms a step "
+            f"({n_nodes / step_s:,.0f} nodes/s, {n_edges / step_s:,.0f} "
+            f"edges/s; host clock to a synchronize over {GNN_TIMED} steps), "
+            f"bound {bound_ms:.3f} ms ({by}: {flops:.4e} FLOP at "
+            f"{hw.PEAK_FLOPS_F32:.3e}/s, {nbytes:.4e} B at {hw.HBM_BW:.3e} "
+            f"B/s), {bound_ms / step_ms:.1%} of it; the reference's "
+            f"model_flops_for {ref_flops:.4e}, the layer's products without "
+            f"remat {flops * 3 / 4:.4e} ({flops * 3 / 4 / ref_flops:.1f}x "
+            f"it); "
+            f"max_memory_allocated {peak:,} B; default-mode loss vs "
+            f"deterministic: relative {gap:.2e} (bound {GNN_DET_REL}); "
+            f"profiled step: {profile} "
+            f"({time.perf_counter() - t_cell:.1f} s)")
+        return dict(step_ms=step_ms, bound_ms=bound_ms, peak=peak,
+                    edges_s=n_edges / step_s, gap=gap)
+
+    summary = {}
+    for name in ("full_graph_sm", "molecule"):
+        prog = build_cell("gatedgcn", name, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+        batches = [init_inputs(prog, gen) for _ in range(GNN_TIMED + 2)]
+        shapes = (tuple(batches[0]["node_feats"].shape),
+                  tuple(batches[0]["edge_index"].shape))
+        summary[name] = timed(name, prog, batches,
+                              f"init_inputs batches, node_feats "
+                              f"{shapes[0]}, edge_index {shapes[1]}, no cut")
+        del batches
+
+    # -- the sampler on a reddit-size CSR graph on the card --------------
+    t_graph = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+    N, E = REDDIT_NODES, REDDIT_EDGES
+    zero = torch.zeros(N, dtype=torch.bool, device=dev)
+    zero[::97] = True                   # zero-degree nodes, the last one too
+    zero[-1] = True
+    owners = (~zero).nonzero()[:, 0]
+    deg = torch.zeros(N, dtype=torch.int64, device=dev)
+    for start in range(0, E, 1 << 25):
+        part = min(1 << 25, E - start)
+        deg += torch.bincount(owners[torch.randint(
+            0, len(owners), (part,), generator=gen, device=dev)],
+            minlength=N)
+    indptr = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = deg.cumsum(0)
+    graph = gnn.CSRGraph(indptr=indptr.to(i32), indices=torch.randint(
+        0, N, (E,), dtype=i32, generator=gen, device=dev))
+    cell = get_cell("gatedgcn", "minibatch_lg")
+    d_feat, n_classes = cell.dims["d_feat"], cell.dims["n_classes"]
+    table = torch.randn((N, d_feat), generator=gen, device=dev)
+    node_labels = torch.randint(0, n_classes, (N,), dtype=i32,
+                                generator=gen, device=dev)
+    graph_s = sync_s(t_graph)
+    fanouts = (cell.dims["fanout1"], cell.dims["fanout2"])
+    n_seeds = cell.dims["batch_nodes"]
+    prog = build_cell("gatedgcn", "minibatch_lg", device=dev)
+    subs, sample_ms = [], []
+    for i in range(GNN_TIMED + 2 + REPS):
+        seeds = torch.randperm(N, generator=gen, device=dev)[:n_seeds].to(i32)
+        seeds[:2] = torch.tensor([0, N - 1], device=dev)   # zero degree
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sub = gnn.neighbor_sample(gen, graph, seeds, fanouts)
+        sample_ms.append(sync_s(t0) * 1e3)
+        if i < GNN_TIMED + 2:
+            subs.append(sub)
+    # invariants of the first subgraph: shapes, CSR membership, masking
+    sub = subs[0]
+    n_sub, e_sub = gnn.subgraph_sizes(n_seeds, fanouts)
+    if (tuple(sub["nodes"].shape) != (n_sub,)
+            or tuple(sub["edge_index"].shape) != (2, e_sub)
+            or (n_sub, e_sub) != (prog.input_specs["node_feats"].shape[0],
+                                  prog.input_specs["edge_index"].shape[1])):
+        raise AssertionError(f"neighbor_sample shapes {sub['nodes'].shape} "
+                             f"{sub['edge_index'].shape} vs {n_sub, e_sub}")
+    nodes = sub["nodes"].long()
+    s_glob = nodes[sub["edge_index"][0].long()]
+    d_glob = nodes[sub["edge_index"][1].long()]
+    d_deg = deg[d_glob]
+    if not torch.equal(sub["edge_mask"], d_deg > 0):
+        raise AssertionError("neighbor_sample: edge_mask != the frontier "
+                             "node has a neighbor")
+    masked = int((~sub["edge_mask"]).sum())
+    trailing = int((d_glob == N - 1).sum())
+    if not (masked and trailing):
+        raise AssertionError("neighbor_sample: no zero-degree frontier node "
+                             "to check")
+    valid = sub["edge_mask"].nonzero()[:, 0]
+    max_deg = int(deg.max())
+    found = torch.zeros(len(valid), dtype=torch.bool, device=dev)
+    for lo in range(0, len(valid), 8_192):
+        sel = valid[lo:lo + 8_192]
+        k = torch.arange(max_deg, device=dev)
+        at = indptr[d_glob[sel]][:, None] + k
+        inside = k < d_deg[sel][:, None]
+        nbrs = graph.indices[torch.where(inside, at, 0)].long()
+        found[lo:lo + 8_192] = ((nbrs == s_glob[sel][:, None])
+                                & inside).any(1)
+    if not bool(found.all()):
+        raise AssertionError(f"neighbor_sample: {int((~found).sum())} "
+                             "valid edges whose source is not a CSR "
+                             "neighbor of their destination")
+    del found
+    sample_med = statistics.median(sample_ms[GNN_TIMED + 2:])
+    log(f"[gnn sampler] reddit-size CSR on the card: {N:,} nodes "
+        f"({int(zero.sum()):,} of degree 0, the last among them), "
+        f"{E:,} edges (int32 indices {E * 4:,} B; degrees up to {max_deg}), "
+        f"a ({N:,}, {d_feat}) float32 feature table ({N * d_feat * 4:,} B), "
+        f"built in {graph_s:.2f} s; neighbor_sample of {n_seeds:,} seeds at "
+        f"fanouts {fanouts}: {sample_med:.3f} ms (median of {REPS} after "
+        f"{GNN_TIMED + 2}; host clock to a synchronize); shapes == "
+        f"subgraph_sizes {n_sub:,} nodes, {e_sub:,} edges; all "
+        f"{len(valid):,} valid edges' sources are CSR neighbors of their "
+        f"destinations; {masked:,} edges of zero-degree frontier nodes "
+        f"masked ({trailing} of them the last node's)")
+    batches = []
+    for sub in subs:
+        nodes = sub["nodes"].long()
+        node_mask = torch.zeros(n_sub, dtype=f32, device=dev)
+        node_mask[:n_seeds] = 1.0               # the loss over the seeds
+        batches.append({"node_feats": table[nodes],
+                        "edge_index": sub["edge_index"],
+                        "edge_mask": sub["edge_mask"].to(f32),
+                        "labels": node_labels[nodes],
+                        "node_mask": node_mask})
+    del subs, table, graph, indptr, deg, zero, owners
+    summary["minibatch_lg"] = timed(
+        "minibatch_lg", prog, batches,
+        f"sampled subgraphs ({n_sub:,} x {e_sub:,}, features gathered from "
+        f"the table, the loss over the {n_seeds:,} seeds), no cut")
+    del batches
+    summary["minibatch_lg"]["sample_ms"] = sample_med
+
+    # -- ogb_products, nodes and edges cut by OGB_CUT --------------------
+    cell = get_cell("gatedgcn", "ogb_products")
+    n = round(cell.dims["n_nodes"] / OGB_CUT)
+    e = round(cell.dims["n_edges"] / OGB_CUT)
+    N, E = _pad512(n), _pad512(e)
+    prog = build_cell("gatedgcn", "ogb_products", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    batch = {"node_feats": torch.randn((N, cell.dims["d_feat"]),
+                                       generator=gen, device=dev),
+             "edge_index": torch.randint(0, n, (2, E), dtype=i32,
+                                         generator=gen, device=dev),
+             "edge_mask": (torch.arange(E, device=dev) < e).to(f32),
+             "labels": torch.randint(0, cell.dims["n_classes"], (N,),
+                                     dtype=i32, generator=gen, device=dev),
+             "node_mask": (torch.arange(N, device=dev) < n).to(f32)}
+    summary["ogb_products"] = timed(
+        "ogb_products", prog, [batch] * (GNN_TIMED + 2),
+        f"cut 1/{OGB_CUT}: {n:,} nodes, {e:,} edges (padded {N:,} x {E:,}; "
+        f"mean degree {e / n:.2f}, d_feat {cell.dims['d_feat']}, "
+        f"{cell.dims['n_classes']} classes), from {cell.dims['n_nodes']:,} "
+        f"x {cell.dims['n_edges']:,}")
+    del batch
+    torch.cuda.empty_cache()
+
+    # -- remat == none, and one step moving every leaf (full_graph_sm) ---
+    prog = build_cell("gatedgcn", "full_graph_sm", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 84)
+    model = prog.init_params(gen)
+    batch = init_inputs(prog, gen)
+    grads = {}
+    with deterministic():
+        for remat in (False, True):
+            cfg = dataclasses.replace(prog.config, remat=remat)
+            p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                         model.params())
+            loss = gnn.gnn_loss(p, batch, cfg)
+            loss.backward()
+            grads[remat] = [("loss", loss.detach())] + [
+                (k, t.grad) for k, t in path_leaves(p)]
+    differ = [k for (k, a), (_, b) in zip(grads[False], grads[True])
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"gatedgcn remat vs none differ at {differ}")
+    params = model.params()
+    before = {k: t.clone() for k, t in path_leaves(params)}
+    state = prog.optimizer.init(params)
+    state["count"].fill_(200)
+    params, state, _ = prog.step(model, params, state, batch)
+    still = [k for k, t in path_leaves(params) if torch.equal(t, before[k])]
+    if still:
+        raise AssertionError(f"gatedgcn: an AdamW step left {still}")
+    log(f"[gnn checks] full_graph_sm at the published config: remat vs none "
+        f"(deterministic algorithms): the loss and all {len(before)} "
+        f"gradient leaves bit for bit; one AdamW step at count 200 moved "
+        f"all {len(before)} leaves")
+
+    # -- the launcher --------------------------------------------------------
+    first = re.compile(r"gatedgcn/(\S+): [\d,]+ params, "
+                       r"optimizer=fused-adafactor")
+    last = re.compile(r"loss: first=\d+\.\d{4} last=\d+\.\d{4} "
+                      r"\((\d+) steps from step (\d+), \d+ stragglers\)")
+
+    def train_run(name, steps, ckpt_dir=None):
+        out = io.StringIO()
+        argv = ["--arch", "gatedgcn", "--cell", name, "--no-smoke",
+                "--steps", str(steps), "--seed", str(SEED)]
+        if ckpt_dir:
+            argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+        with contextlib.redirect_stdout(out):
+            state = train_cli.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        if not (first.fullmatch(lines[0]) and last.fullmatch(lines[-1])):
+            raise AssertionError(f"train --cell {name} printed {lines!r}")
+        return state, lines
+
+    for name in ("full_graph_sm", "molecule", "minibatch_lg"):
+        t0 = time.perf_counter()
+        _, lines = train_run(name, GNN_CLI_STEPS)
+        log(f"[gnn CLI] python -m repro_torch.launch.train --arch gatedgcn "
+            f"--cell {name} --no-smoke --steps {GNN_CLI_STEPS}: "
+            f"{' | '.join(lines)} ({time.perf_counter() - t0:.1f} s)")
+    straight, resumed = SMOKE_DIR / "gnn_straight", SMOKE_DIR / "gnn_resumed"
+    try:
+        with deterministic():
+            a, _ = train_run("full_graph_sm", GNN_CLI_STEPS, str(straight))
+            train_run("full_graph_sm", GNN_CLI_STEPS // 2, str(resumed))
+            b, lines = train_run("full_graph_sm", GNN_CLI_STEPS,
+                                 str(resumed))
+    finally:
+        shutil.rmtree(straight, ignore_errors=True)
+        shutil.rmtree(resumed, ignore_errors=True)
+    pairs = list(zip(path_leaves(a), path_leaves(b)))
+    if (int(b.step) != GNN_CLI_STEPS or not pairs
+            or not all(ka == kb and torch.equal(x, y)
+                       for (ka, x), (kb, y) in pairs)
+            or f"from step {GNN_CLI_STEPS // 2}" not in lines[-1]):
+        raise AssertionError("train --arch gatedgcn: resumed run != the "
+                             "unbroken run")
+    log(f"[gnn CLI] --cell full_graph_sm --no-smoke --steps "
+        f"{GNN_CLI_STEPS} resumed from its step-{GNN_CLI_STEPS // 2} "
+        f"checkpoint ({lines[-1]}) == the unbroken run: all {len(pairs)} "
+        f"parameter and AdamW state leaves bit for bit (deterministic "
+        f"algorithms)")
+    log(f"[gnn] {time.perf_counter() - t_phase:.1f} s, {held:,} B held "
+        f"before the phase (peaks include it); " + "; ".join(
+        f"{c}: {r['step_ms']:.2f} ms a step ({r['edges_s']:,.0f} edges/s; "
+        f"bound {r['bound_ms']:.3f}), peak {r['peak']:,} B"
+        for c, r in summary.items())
+        + f"; sampler {summary['minibatch_lg']['sample_ms']:.3f} ms")
 
 
 if __name__ == "__main__":

@@ -1,19 +1,19 @@
-"""Architecture / shape registry (port of the recsys and LM parts of
-``repro.configs.base``).
+"""Architecture / shape registry (port of ``repro.configs.base``).
 
 Each arch module registers an ``ArchSpec``: ``family``, the published
 ``config``, a reduced ``smoke`` config of the same family for CPU runs, and
 its ``source``, and the cells it skips (``skip_cells``, cell -> reason).
-The family's shape cells are the reference's.  ``input_specs(arch, cell,
+The family's shape cells are the reference's.  ``config_for_cell(arch,
+cell, smoke)`` is the model config a cell runs (a GNN's ``d_in``,
+``n_classes`` and ``readout`` are the cell's); ``input_specs(arch, cell,
 smoke)`` gives each step input's shape and ``torch.dtype`` (an
 ``InputSpec``; a decode cell's ``cache`` a tree of them), and
 ``n_candidates`` as an int for the retrieval cell; nothing is allocated.
 
-Ported: the recsys family (Wide & Deep, AutoInt, DIN and MIND in their
-four cells) and the five LM archs (deepseek-7b, yi-34b,
-mistral-large-123b, llama4-scout-17b-a16e, deepseek-v3-671b).  The GNN
-arch of the reference raises ``KeyError`` (``ROADMAP.md`` queue 1,
-"GNN").
+Every arch of the reference is here: the recsys family (Wide & Deep,
+AutoInt, DIN and MIND in their four cells), the five LM archs
+(deepseek-7b, yi-34b, mistral-large-123b, llama4-scout-17b-a16e,
+deepseek-v3-671b) and GatedGCN in the four GNN cells.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models.gnn import subgraph_sizes
 from repro_torch.tree import tree_map
 
 
@@ -64,8 +65,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
     if arch_id not in _REGISTRY:
         raise KeyError(f"arch {arch_id!r} is not in the port, which has "
-                       f"{sorted(_REGISTRY)}; ROADMAP.md queue 1 lists the "
-                       "models still to port")
+                       f"{sorted(_REGISTRY)}, every arch of the reference")
     return _REGISTRY[arch_id]
 
 
@@ -78,9 +78,9 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (autoint, deepseek_7b,  # noqa: F401
-                                     deepseek_v3_671b, din, llama4_scout,
-                                     mind, mistral_large_123b, wide_deep,
-                                     yi_34b)
+                                     deepseek_v3_671b, din, gatedgcn,
+                                     llama4_scout, mind, mistral_large_123b,
+                                     wide_deep, yi_34b)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +95,21 @@ LM_CELLS = [
               note="sub-quadratic attention required"),
 ]
 
+GNN_CELLS = [
+    ShapeCell("full_graph_sm", "gnn_train_full",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433,
+               "n_classes": 7}),
+    ShapeCell("minibatch_lg", "gnn_train_sampled",
+              {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+               "fanout1": 15, "fanout2": 10, "d_feat": 602, "n_classes": 41}),
+    ShapeCell("ogb_products", "gnn_train_full",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100,
+               "n_classes": 47}),
+    ShapeCell("molecule", "gnn_train_graphs",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 28,
+               "n_classes": 2}),
+]
+
 RECSYS_CELLS = [
     ShapeCell("train_batch", "recsys_train", {"batch": 65536}),
     ShapeCell("serve_p99", "recsys_serve", {"batch": 512}),
@@ -103,9 +118,11 @@ RECSYS_CELLS = [
               {"batch": 1, "n_candidates": 1_000_000}),
 ]
 
-FAMILY_CELLS = {"lm": LM_CELLS, "recsys": RECSYS_CELLS}
+FAMILY_CELLS = {"lm": LM_CELLS, "gnn": GNN_CELLS, "recsys": RECSYS_CELLS}
 
 SMOKE_LM = {"batch": 2, "seq": 64, "decode_len": 64}
+SMOKE_GNN = {"n_nodes": 64, "n_edges": 256, "d_feat": 16, "n_classes": 4,
+             "batch_nodes": 8, "fanout1": 3, "fanout2": 2, "batch": 4}
 SMOKE_RECSYS = {"batch": 32, "n_candidates": 128}
 
 
@@ -120,11 +137,45 @@ def get_cell(arch_id: str, cell_name: str) -> ShapeCell:
     raise KeyError(f"{arch_id} has no cell {cell_name!r}")
 
 
-def get_config(arch_id: str, smoke: bool = False):
-    """The arch's published config, or its smoke config (an LM or recsys
-    config does not depend on the cell)."""
+def config_for_cell(arch_id: str, cell: ShapeCell, smoke: bool = False):
+    """The arch's published config, or its smoke config, for ``cell``: a
+    GNN's ``d_in``, ``n_classes`` and ``readout`` are the cell's (an LM or
+    recsys config does not depend on the cell)."""
     spec = get_arch(arch_id)
-    return spec.smoke if smoke else spec.config
+    cfg = spec.smoke if smoke else spec.config
+    if spec.family == "gnn":
+        dims = SMOKE_GNN if smoke else cell.dims
+        cfg = dataclasses.replace(
+            cfg, d_in=dims["d_feat"], n_classes=dims["n_classes"],
+            readout="graph" if cell.kind == "gnn_train_graphs" else "node")
+    return cfg
+
+
+def _pad512(n: int) -> int:
+    """Edge arrays are padded (mask-valid) to a 512 multiple so they tile
+    and shard evenly; the data loader pads identically."""
+    return ((n + 511) // 512) * 512
+
+
+def _gnn_specs(kind: str, dims: Dict[str, int]) -> Dict[str, InputSpec]:
+    i32, f32 = torch.int32, torch.float32
+    if kind == "gnn_train_full":
+        N, E = _pad512(dims["n_nodes"]), _pad512(dims["n_edges"])
+    elif kind == "gnn_train_sampled":
+        N, E = map(_pad512, subgraph_sizes(
+            dims["batch_nodes"], (dims["fanout1"], dims["fanout2"])))
+    else:                                       # gnn_train_graphs
+        N = dims["batch"] * dims["n_nodes"]
+        E = _pad512(dims["batch"] * dims["n_edges"])
+    out = {"node_feats": InputSpec((N, dims["d_feat"]), f32),
+           "edge_index": InputSpec((2, E), i32),
+           "edge_mask": InputSpec((E,), f32),
+           "labels": InputSpec((dims["batch"] if kind == "gnn_train_graphs"
+                                else N,), i32),
+           "node_mask": InputSpec((N,), f32)}
+    if kind == "gnn_train_graphs":
+        out["graph_ids"] = InputSpec((N,), i32)
+    return out
 
 
 def input_specs(arch_id: str, cell_name: str,
@@ -133,9 +184,12 @@ def input_specs(arch_id: str, cell_name: str,
     tree of ``init_cache``); ``n_candidates`` (an int) for the recsys
     retrieval cell, whose batch is always one query."""
     cell = get_cell(arch_id, cell_name)
-    cfg = get_config(arch_id, smoke)
+    cfg = config_for_cell(arch_id, cell, smoke)
+    family = get_arch(arch_id).family
     i32, f32 = torch.int32, torch.float32
-    if get_arch(arch_id).family == "lm":
+    if family == "gnn":
+        return _gnn_specs(cell.kind, SMOKE_GNN if smoke else cell.dims)
+    if family == "lm":
         B = SMOKE_LM["batch"] if smoke else cell.dims["batch"]
         S = SMOKE_LM["seq"] if smoke else cell.dims["seq"]
         if cell.kind == "lm_train":

@@ -1,6 +1,6 @@
 """Carry hash families, VW hashers, linear models, SGD and training state,
-recsys and LM weights, LM caches and Adafactor states from the JAX package
-into the port.
+recsys, LM and GNN weights, LM caches and Adafactor states from the JAX
+package into the port.
 
 Nothing here imports ``jax`` or ``repro``: a JAX object is read through
 its attributes with ``np.asarray`` (which any array-like supports), so
@@ -21,6 +21,7 @@ from repro_torch.core.oph import OPH
 from repro_torch.core.u32 import from_numpy
 from repro_torch.core.vw import VWHasher
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.gnn import GNNConfig, GNNModel
 from repro_torch.models.linear import LinearModel, SGDState
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import TransformerConfig, TransformerModel
@@ -208,3 +209,14 @@ def lm_cache_from_jax(cache, device: DeviceLike = None) -> Dict:
     ``v`` or MLA's ``ckv``, ``kr``) -> the port's, each leaf in its own
     type on ``device``."""
     return tree_from_numpy(cache, device)
+
+
+def gnn_params_from_jax(params, cfg: GNNConfig,
+                        device: DeviceLike = None) -> GNNModel:
+    """A reference GNN parameter tree (``embed_in``, ``embed_edge``,
+    ``layers`` stacked along axis 0, ``out``; numpy arrays or anything
+    ``np.asarray`` reads) -> the port's model with the same values on
+    ``device``, in ``cfg.param_dtype``.  ``cfg`` is the port's config of
+    the same arch and cell."""
+    return GNNModel(cfg, tree_from_numpy(params, device,
+                                         float_dtype=cfg.param_dtype))

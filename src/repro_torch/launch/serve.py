@@ -50,7 +50,8 @@ accounting; ``--metrics-port`` serves live Prometheus metrics and
 ``--trace-out`` writes the request span trees as trace-event JSON.
 
 Both run on the card unless ``--device cpu``, where the kernels' plain
-versions run.
+versions run.  ``--arch gatedgcn`` is refused: the GNN family has no
+serving cell (the reference dies on it with a ``KeyError``).
 """
 
 from __future__ import annotations
@@ -379,6 +380,9 @@ def main(argv=None):
         family = get_arch(args.arch).family
     except KeyError as e:
         ap.error(e.args[0])
+    if family == "gnn":
+        ap.error(f"--arch {args.arch}: the GNN family has no serving cell "
+                 "(its cells train: python -m repro_torch.launch.train)")
     if family == "lm":
         serve_lm(args)
     else:

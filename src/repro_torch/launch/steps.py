@@ -1,5 +1,5 @@
-"""Step programs per (architecture x shape cell) (port of the recsys and
-LM parts of ``repro.launch.steps``).
+"""Step programs per (architecture x shape cell) (port of
+``repro.launch.steps``).
 
 ``build_cell(arch_id, cell_name, smoke, device)`` returns a ``CellProgram``
 with the cell's config and input specs, ``init_params(generator)`` (the
@@ -24,7 +24,12 @@ cell's kind as the reference's do:
   * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,) logits``
   * ``recsys_train``:     ``step(model, params, opt_state, inputs) ->
     (params, opt_state, loss)``, the fused Adafactor step on the
-    reference's parameter dict, new tensors out.
+    reference's parameter dict, new tensors out;
+  * ``gnn_train_full``, ``gnn_train_sampled``, ``gnn_train_graphs``:
+    ``step(model, params, opt_state, inputs) -> (params, opt_state,
+    loss)``, ``gnn.gnn_loss`` differentiated on the reference's parameter
+    tree, then AdamW (``_pick_optimizer`` for the GNN family), its update
+    added to ``params`` in place.
 
 For a train cell ``model`` gives the config (and a recsys model the
 frontend's coefficients); its own parameters are not read.  The LM
@@ -44,9 +49,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (get_arch, get_cell, get_config,
+from repro_torch.configs.base import (config_for_cell, get_arch, get_cell,
                                       input_specs, is_skipped)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, warmup_cosine
@@ -74,12 +80,15 @@ class CellProgram:
 
     def init_params(self, generator: torch.Generator):
         """Fresh weights from ``generator``, which must be on the
-        program's device: a ``TransformerModel`` or a ``RecsysModel``."""
+        program's device: a ``TransformerModel``, a ``RecsysModel`` or a
+        ``GNNModel``."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, program on "
                              f"{self.device}")
         if self.family == "lm":
             return tfm.init_params(self.config, generator)
+        if self.family == "gnn":
+            return _gnn_init(self.config, generator)
         return recsys_lib.init_recsys_params(self.config, generator)
 
     def step(self, model, *args):
@@ -106,6 +115,9 @@ class CellProgram:
         if self.kind == "lm_train":
             loss = lambda p, batch: tfm.train_loss(p, batch, self.config)
             split = tfm.per_layer
+        elif self.family == "gnn":
+            loss = lambda p, batch: _gnn_loss(p, batch, self.config)
+            split = None
         else:
             loss = lambda p, batch: recsys_lib.recsys_loss(model, batch, p)
             split = None
@@ -117,11 +129,12 @@ def _pick_optimizer(n_params: int, steps: int = 10000, family: str = "lm"
                     ) -> Tuple[Optimizer, bool]:
     """(optimizer, fused), the reference's choice: a recsys cell's
     embedding tables dominate, so a factored second moment (O(V + d) state
-    a table) in place of AdamW's two table-sized states; an LM takes AdamW
-    (weight decay 0.01) up to ``ADAFACTOR_THRESHOLD`` parameters, Adafactor
-    with bfloat16 momentum 0.9 above, and momentum-free Adafactor above
-    ``MOMENTUM_FREE_THRESHOLD``.  A fused optimizer applies its own update;
-    the LM's writes over the old parameters and state."""
+    a table) in place of AdamW's two table-sized states; an LM or a GNN
+    takes AdamW (weight decay 0.01) up to ``ADAFACTOR_THRESHOLD``
+    parameters, Adafactor with bfloat16 momentum 0.9 above, and
+    momentum-free Adafactor above ``MOMENTUM_FREE_THRESHOLD``.  A fused
+    optimizer applies its own update; the LM's writes over the old
+    parameters and state."""
     lr = warmup_cosine(3e-4, 200, steps)
     if family == "recsys":
         return adafactor_fused(lr, momentum=None), True
@@ -199,7 +212,7 @@ def build_cell(arch_id: str, cell_name: str, smoke: bool = False,
     if reason:
         raise ValueError(f"{arch_id} skips {cell_name}: {reason}")
     specs = input_specs(arch_id, cell_name, smoke)
-    cfg = get_config(arch_id, smoke)
+    cfg = config_for_cell(arch_id, cell, smoke)
     prog = CellProgram(arch_id=arch_id, cell_name=cell_name, kind=cell.kind,
                        family=get_arch(arch_id).family, config=cfg,
                        device=resolve_device(device), input_specs=specs,
@@ -209,7 +222,19 @@ def build_cell(arch_id: str, cell_name: str, smoke: bool = False,
     elif cell.kind == "lm_train":
         prog.optimizer, prog.fused = _pick_optimizer(tfm.count_params(cfg))
         prog.microbatch = 1 if smoke else cfg.microbatch
+    elif prog.family == "gnn":
+        prog.optimizer, prog.fused = _pick_optimizer(
+            sum(t.numel() for t in tree_leaves(gnn_lib.gnn_param_shapes(cfg))),
+            family="gnn")
     return prog
+
+
+def _gnn_init(cfg, generator: torch.Generator):
+    return gnn_lib.init_gnn_params(cfg, generator)
+
+
+def _gnn_loss(params, inputs, cfg):
+    return gnn_lib.gnn_loss(params, inputs, cfg)
 
 
 def init_inputs(program: CellProgram,
@@ -219,9 +244,15 @@ def init_inputs(program: CellProgram,
     [0, vocab), a zero ``cache`` and ``pos`` 2 (int32); recsys ``field_ids`` in [0, vocab), ``hist_ids``
     and ``target_id`` in [0, item_vocab), ``set_ids`` in [0, 2^s),
     ``set_counts`` in [1, set_nnz), ``hist_mask`` ones and ``labels``
-    Bernoulli(0.5) in float32."""
+    Bernoulli(0.5) in float32; GNN ``node_feats`` standard normal,
+    ``edge_index`` in [0, nodes) (a molecule batch's edges may join two of
+    its graphs, as the reference's do), ``edge_mask`` and ``node_mask``
+    ones, ``labels`` in [0, n_classes) and ``graph_ids`` the
+    block-diagonal repeat (graph g owns nodes [g * per, (g + 1) * per))."""
     cfg = program.config
     dev = generator.device
+    if program.family == "gnn":
+        return _gnn_inputs(program, generator)
     if program.family == "lm":
         tok = program.input_specs["tokens"]
         out = {name: torch.randint(0, cfg.vocab, tok.shape, dtype=tok.dtype,
@@ -250,4 +281,27 @@ def init_inputs(program: CellProgram,
             out[name] = torch.randint(*ranges[name], spec.shape,
                                       dtype=spec.dtype, generator=generator,
                                       device=dev)
+    return out
+
+
+def _gnn_inputs(program: CellProgram,
+                generator: torch.Generator) -> Dict[str, Any]:
+    specs, dev = program.input_specs, generator.device
+    n_nodes = specs["node_feats"].shape[0]
+    out = {}
+    for name, spec in specs.items():
+        if name == "node_feats":
+            out[name] = torch.randn(spec.shape, generator=generator,
+                                    device=dev)
+        elif name in ("edge_mask", "node_mask"):
+            out[name] = torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+        elif name in ("edge_index", "labels"):
+            hi = n_nodes if name == "edge_index" else program.config.n_classes
+            out[name] = torch.randint(0, hi, spec.shape, dtype=spec.dtype,
+                                      generator=generator, device=dev)
+    if "graph_ids" in specs:
+        n_graphs = specs["labels"].shape[0]
+        out["graph_ids"] = torch.arange(
+            n_graphs, dtype=torch.int32, device=dev).repeat_interleave(
+                n_nodes // n_graphs)
     return out

@@ -1,13 +1,15 @@
-"""Training launcher (port of ``repro.launch.train``) for the recsys and
-LM families.
+"""Training launcher (port of ``repro.launch.train``) for the recsys, LM
+and GNN families.
 
     PYTHONPATH=src python -m repro_torch.launch.train
-        --arch wide-deep|autoint|din|mind|<an LM arch> [--cell CELL]
-        [--smoke | --no-smoke] [--steps N] [--ckpt-dir DIR]
+        --arch wide-deep|autoint|din|mind|gatedgcn|<an LM arch>
+        [--cell CELL] [--smoke | --no-smoke] [--steps N] [--ckpt-dir DIR]
         [--ckpt-every N] [--seed S] [--device cuda|cpu]
 
-Builds the arch's train cell (``train_batch``, 65,536 rows a step, or an
-LM's ``train_4k``, 256 x 4,096 tokens, at ``--no-smoke``), draws its
+Builds the arch's train cell (``--cell``, by default its first: a recsys
+arch's ``train_batch``, 65,536 rows a step, an LM's ``train_4k``, 256 x
+4,096 tokens, at ``--no-smoke``, GatedGCN's ``full_graph_sm``; its other
+cells are ``minibatch_lg``, ``ogb_products`` and ``molecule``), draws its
 weights from a generator seeded with ``--seed`` on the device, and runs
 the cell's step (the optimizer ``launch.steps`` picks) through
 ``Trainer``: checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, resume from
@@ -26,7 +28,7 @@ import argparse
 
 import torch
 
-from repro_torch.configs import cells_for, get_arch
+from repro_torch.configs import cells_for, get_arch, get_cell
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_cell, init_inputs
 from repro_torch.train import TrainState, Trainer
@@ -42,11 +44,11 @@ def _train_cell_name(arch_id: str) -> str:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a recsys arch (wide-deep, autoint, din, mind) or "
-                         "an LM arch")
+                    help="a recsys arch (wide-deep, autoint, din, mind), "
+                         "an LM arch or gatedgcn")
     ap.add_argument("--cell", default=None,
-                    help="the train cell (default: the arch's, train_batch "
-                         "or train_4k)")
+                    help="the train cell (default: the arch's first, "
+                         "train_batch, train_4k or full_graph_sm)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="shrink the arch for a fast smoke run "
@@ -70,12 +72,13 @@ def main(argv=None) -> TrainState:
                  "\"The multi-GPU mesh path\"")
     try:
         get_arch(args.arch)
+        cell = args.cell or _train_cell_name(args.arch)
+        get_cell(args.arch, cell)
     except KeyError as e:
         ap.error(e.args[0])
     dev = resolve_device(args.device)
-    cell = args.cell or _train_cell_name(args.arch)
     prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
-    if prog.kind not in ("recsys_train", "lm_train"):
+    if "train" not in prog.kind:
         ap.error(f"cell {cell!r} of {args.arch} is {prog.kind}, not a train "
                  "cell")
     model = prog.init_params(torch.Generator(device=dev).manual_seed(args.seed))

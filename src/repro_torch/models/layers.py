@@ -1,7 +1,8 @@
 """Shared building blocks (port of ``repro.models.layers``): ``normal_init``,
 ``mlp`` / ``init_mlp``, ``rms_norm``, ``layer_norm``, ``swiglu`` and
-``apply_rope``, and ``attach_params``, which holds a parameter dict in an
-``nn.Module``.
+``apply_rope``, ``attach_params``, which holds a parameter dict in an
+``nn.Module``, and ``TreeModel``, a model holding the reference's
+parameter tree that way.
 
 Initialisation draws from an explicit ``torch.Generator`` on the device
 the tensors are made on, so a seed gives the same weights in every
@@ -16,6 +17,8 @@ from typing import Callable, Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.tree import map_with_path
 
 # elements of float32 drawn at once for a leaf stored in another type: a
 # 7.5 GB bfloat16 leaf is drawn through 1 GiB of float32, not 15 GB
@@ -129,3 +132,21 @@ def attach_params(module: nn.Module, tree: Dict) -> None:
                 attach_params(sub, v)
                 subs.append(sub)
             module.add_module(key, nn.ModuleList(subs))
+
+
+class TreeModel(nn.Module):
+    """A model's config and the reference's parameter tree, held as frozen
+    parameters under the tree's names (``a/b`` registered as ``a.b``),
+    taken as they are, not copied."""
+
+    def __init__(self, cfg, params: Dict):
+        super().__init__()
+        self.cfg = cfg
+        self._skeleton = map_with_path(lambda path, _: path, params)
+        attach_params(self, params)
+
+    def params(self) -> Dict:
+        """The reference's parameter tree, sharing this model's storage."""
+        return map_with_path(
+            lambda _, path: self.get_parameter(path.replace("/", ".")),
+            self._skeleton)

@@ -36,14 +36,11 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.core.u32 import narrow
 from repro_torch.kernels.minhash import minhash2u
 from repro_torch.kernels.sigbag import sigbag
-from repro_torch.models.layers import (attach_params, init_mlp, mlp,
-                                      normal_init)
-from repro_torch.tree import map_with_path
+from repro_torch.models.layers import TreeModel, init_mlp, mlp, normal_init
 
 # candidates scored at once by ``retrieval_scores``: at 65,536 the widest
 # intermediate (DIN's 72-wide attention input over 100 steps, AutoInt's
@@ -140,7 +137,7 @@ def minhash_coeffs(generator: torch.Generator,
     return narrow(a1), narrow(a2)
 
 
-class RecsysModel(nn.Module):
+class RecsysModel(TreeModel):
     """A recsys model's parameters and frontend coefficients.
 
     ``params`` is the reference's parameter dict (for Wide & Deep
@@ -155,20 +152,11 @@ class RecsysModel(nn.Module):
     def __init__(self, cfg: RecsysConfig, params: Dict,
                  a1: Optional[torch.Tensor] = None,
                  a2: Optional[torch.Tensor] = None):
-        super().__init__()
         _check_interaction(cfg)
-        self.cfg = cfg
-        self._skeleton = map_with_path(lambda path, _: path, params)
-        attach_params(self, params)
+        super().__init__(cfg, params)
         if cfg.use_minhash_frontend:
             self.register_buffer("a1", a1)
             self.register_buffer("a2", a2)
-
-    def params(self) -> Dict:
-        """The reference's parameter dict, sharing this model's storage."""
-        return map_with_path(
-            lambda _, path: self.get_parameter(path.replace("/", ".")),
-            self._skeleton)
 
     def signatures(self, set_ids: torch.Tensor,
                    set_counts: torch.Tensor) -> torch.Tensor:

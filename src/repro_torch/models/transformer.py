@@ -33,17 +33,16 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (blockwise_attention,
                                           decode_attention, mla_decode,
                                           mla_prefill)
-from repro_torch.models.layers import (apply_rope, attach_params, normal_init,
+from repro_torch.models.layers import (TreeModel, apply_rope, normal_init,
                                        rms_norm, swiglu)
 from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
-from repro_torch.tree import map_with_path, tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,22 +143,10 @@ def _param_tree(cfg: TransformerConfig, draw: Callable,
     return params
 
 
-class TransformerModel(nn.Module):
+class TransformerModel(TreeModel):
     """An LM's parameters under the reference's names (``embed``,
     ``layers.attn.wq``, ``layers.ffn.w_gate``, ``dense_layers.ln1`` ...),
     taken as they are, not copied."""
-
-    def __init__(self, cfg: TransformerConfig, params: Dict):
-        super().__init__()
-        self.cfg = cfg
-        self._skeleton = map_with_path(lambda path, _: path, params)
-        attach_params(self, params)
-
-    def params(self) -> Dict:
-        """The reference's parameter tree, sharing this model's storage."""
-        return map_with_path(
-            lambda _, path: self.get_parameter(path.replace("/", ".")),
-            self._skeleton)
 
 
 def init_params(cfg: TransformerConfig,

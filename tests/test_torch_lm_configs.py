@@ -203,3 +203,4 @@ def test_serve_lm_line_matches_reference(capsys, monkeypatch):
     assert re.fullmatch(pattern, got), got
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gatedgcn", "--device", "cpu"])
+    assert "the GNN family has no serving cell" in capsys.readouterr().err

@@ -95,15 +95,18 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_archs_and_kinds_raise():
-    """What the port still refuses: the GNN arch (its config, its cell and
-    its training), an unknown interaction and the mesh path of the train
+    """What the port refuses: an arch the reference does not have, a cell
+    the arch does not have (GatedGCN trains in the GNN cells, not in a
+    recsys one), an unknown interaction and the mesh path of the train
     launcher."""
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_arch("gatedgcn")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
+    with pytest.raises(KeyError, match="not in the port"):
+        get_arch("graphsage")
+    assert get_arch("gatedgcn").family == "gnn"
+    with pytest.raises(KeyError, match="no cell"):
         build_cell("gatedgcn", "train_batch", smoke=True, device="cpu")
     with pytest.raises(SystemExit):
-        train.main(["--arch", "gatedgcn", "--device", "cpu"])
+        train.main(["--arch", "gatedgcn", "--cell", "train_batch",
+                    "--device", "cpu"])
     with pytest.raises(KeyError, match="no cell"):
         build_cell("wide-deep", "train_4k", smoke=True, device="cpu")
     cfg = dataclasses.replace(get_arch("wide-deep").smoke,
@@ -220,3 +223,4 @@ def test_serve_entry_point(capsys, monkeypatch):
         serve.main(["--arch", "wide-deep", "--smoke", "--requests", "2"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gatedgcn", "--device", "cpu"])
+    assert "no serving cell" in capsys.readouterr().err

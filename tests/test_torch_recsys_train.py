@@ -298,8 +298,12 @@ def test_train_launcher_refuses_what_is_not_ported(capsys):
         t_train.main(["--arch", "din", "--mesh", "debug", "--device", "cpu"])
     assert "The multi-GPU mesh path" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        t_train.main(["--arch", "gatedgcn", "--device", "cpu"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+        t_train.main(["--arch", "graphsage", "--device", "cpu"])
+    assert "not in the port" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        t_train.main(["--arch", "gatedgcn", "--cell", "serve_p99",
+                      "--device", "cpu"])
+    assert "no cell 'serve_p99'" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "din", "--cell", "serve_p99", "--device",
                       "cpu"])
