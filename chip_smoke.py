@@ -66,7 +66,13 @@ from a reddit-size CSR graph on the card, its time and invariants
 checked), each step timed beside ``gnn_bound``, then the layer against a
 float64 oracle, remat against none and a resumed ``launch.train --arch
 gatedgcn`` against the unbroken run under deterministic algorithms; no
-kernel of ours either (the reference's scatter is plain jnp).  Scratch data goes to ``build/smoke/`` and is removed at the end.  It
+kernel of ours either (the reference's scatter is plain jnp).  Phase 13
+serves phase 5's 4 shards through the mesh dispatcher
+(``ShardedIndex(mesh=...)``) on a mesh of 1 position and of 4 positions
+on cuda:0, exact and LSH flushes held against phase 5's answers and timed
+beside the sequential fan-out, then runs ``launch.serve --index --shards
+4 --mesh 4 --serve``.  Scratch data goes to ``build/smoke/`` and is
+removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
 
@@ -205,6 +211,12 @@ SENT_DOCS = 65_536     # sentinel-wire kernel check: the first docs
 RAW_SHARDS, SIG_CHUNK, N_SHARDS = 16, 50_000, 4
 FLUSH_REPS = {"exact": 5, "lsh": 2}   # timed flushes after the checked one
 BLOCK_LOOP = 20        # back-to-back block launches per timed sample
+
+# Retrieval on a device mesh (phase 13): phase 5's 4 shards on a mesh of
+# 1 position (cuda:0) and of 4 positions on cuda:0; timed rounds after the
+# checked one (an LSH flush is ~8-9 s, nearly all host candidates)
+MESH_POSITIONS = (1, 4)
+MESH_FLUSH_REPS = {"exact": 20, "lsh": 1}
 
 # Search serving (phase 7): phase 5's corpus and shards behind
 # SearchServer; open-loop Zipf traffic (alpha 1.1, seed 1, Poisson
@@ -1137,6 +1149,10 @@ def run(torch) -> int:
 
     # -- phase 12: the GNN family trained (no kernel of ours on its path) -
     gnn_training(torch, dev)
+
+    # -- phase 13: phase 5's shards on a device mesh ----------------------
+    rows["packed_match"]["launches"] += mesh_retrieval(torch, served)
+    log(smi)               # the card beside the numbers at the output's end
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1412,8 +1428,124 @@ def retrieval(torch, dev, n_docs: int) -> dict:
                shard_dir=str(SMOKE_DIR / "rcv1_shards"),
                sig_paths=sig_paths["rotation"],
                exact_rows=np.stack(exact_rows), ids_exact=ids_exact,
-               sc_exact=sc_exact, held=to_numpy(held_sig.data))
+               sc_exact=sc_exact, held=to_numpy(held_sig.data),
+               ids_lsh=ids_lsh, sc_lsh=sc_lsh, cand_lsh=cand_lsh)
     return row, ctx
+
+
+def mesh_retrieval(torch, ctx) -> int:
+    """Phase 13: phase 5's 4 shards through the mesh dispatcher, on a mesh
+    of 1 position (cuda:0) and of 4 positions on cuda:0 (one stream each):
+    exact and LSH flushes of phase 5's queries held against phase 5's
+    answers (the single index, itself == the searcher scoring through the
+    plain version == the sequential fan-out), timed beside the sequential
+    fan-out; then ``serve --index --shards 4 --mesh 4 --serve``.  Returns
+    the ``packed_match`` launches of the mesh flushes."""
+    import numpy as np
+
+    from repro_torch.index import load_sharded
+    from repro_torch.kernels import hamming as kham
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    kern = kham.packed_match_cuda
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    rows = {"exact": list(ctx["exact_rows"]), "lsh": list(ctx["held"])}
+    want = {"exact": (ctx["ids_exact"], ctx["sc_exact"], None),
+            "lsh": (ctx["ids_lsh"], ctx["sc_lsh"], ctx["cand_lsh"])}
+
+    def flush(searcher, mode):
+        for r in rows[mode]:
+            searcher.submit(r)
+        t0 = time.perf_counter()
+        out = searcher.flush(TOPK, mode=mode)
+        lat = time.perf_counter() - t0
+        res = [out[t] for t in sorted(out)]
+        got = (np.concatenate([r.indices for r in res]),
+               np.concatenate([r.scores for r in res]),
+               None if res[0].n_candidates is None else
+               np.concatenate([r.n_candidates for r in res]))
+        return got, lat
+
+    routers = {"sequential": ctx["router"]}
+    for n_pos in MESH_POSITIONS:
+        mesh = make_debug_mesh(n_pos, axes=("data",), devices=[card] * n_pos)
+        r = load_sharded(ctx["shard_dir"], mesh=mesh, corpus_block=BLOCK)
+        t0 = time.perf_counter()
+        lay = r.mesh_layout()
+        torch.cuda.synchronize()
+        log(f"[mesh layout] {N_SHARDS} shards on {n_pos} position(s) of "
+            f"cuda:0: {lay.rows} rows ({lay.rows // lay.block} blocks of "
+            f"{lay.block}) and {lay.stacked_bytes} B stacked per position, "
+            f"{lay.D * lay.stacked_bytes} B in all; shard -> (position, "
+            f"row) {list(lay.shard_pos)}; built in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        routers[f"mesh D={n_pos}"] = r
+    # the first flush of each router is checked; then the routers flush in
+    # turns, the order reversed every other round, so that the drift of a
+    # shared host and card falls on all of them alike
+    mesh_launches = {}
+    for mode in ("exact", "lsh"):
+        lat = {name: [] for name in routers}
+        per_flush = {}
+        for rnd in range(1 + MESH_FLUSH_REPS[mode]):
+            names = list(routers) if rnd % 2 == 0 else list(routers)[::-1]
+            for name in names:
+                kern.launches = 0
+                got, t = flush(routers[name], mode)
+                lat[name].append(t)
+                per_flush.setdefault(name, kern.launches)
+                if name != "sequential":
+                    key = (name, mode)
+                    mesh_launches[key] = mesh_launches.get(key, 0) + \
+                        kern.launches
+                if rnd == 0:
+                    for a, b in zip(got, want[mode]):
+                        if b is not None and not np.array_equal(a, b):
+                            raise AssertionError(
+                                f"{name} {mode} flush != phase 5's answers "
+                                "(single index, plain-scored searcher)")
+        for name, r in routers.items():
+            if name != "sequential":
+                lay = r.mesh_layout()
+                want_n = (lay.D * (lay.rows // lay.block) if mode == "exact"
+                          else lay.D)
+                if per_flush[name] != want_n:
+                    raise AssertionError(f"{name} {mode} flush launched "
+                                         f"packed_match {per_flush[name]} "
+                                         f"times, want {want_n}")
+            ts = lat[name]
+            log(f"[mesh {mode}] {name}: {N_QUERIES} queries, flush p50 "
+                f"{statistics.median(ts) * 1e3:.1f} ms, p99 (the max of "
+                f"{len(ts)}) {max(ts) * 1e3:.1f} ms, in turns with the other "
+                f"routers; packed_match launches {per_flush[name]} per "
+                f"flush; ids and scores == phase 5's answers")
+    for name, r in routers.items():
+        if name != "sequential" and (r.mesh_exact_dispatches < 1
+                                     or r.mesh_lsh_dispatches < 1):
+            raise AssertionError(f"{name}: the mesh dispatcher never ran")
+    if min(mesh_launches.values()) < 1:
+        raise AssertionError("a mesh flush never launched packed_match")
+    del routers
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--index", "--shards", "4", "--mesh", "4", "--serve"])
+    lines = out.getvalue().strip().splitlines()
+    n_cards = torch.cuda.device_count()
+    if not (re.search(rf"into 4 shards on {min(4, n_cards)} device\(s\) "
+                      r"\(mesh exact dispatch\)", lines[0])
+            and any(f"over {min(4, n_cards)} worker(s)" in ln
+                    for ln in lines)):
+        raise AssertionError(f"serve --mesh 4 --serve printed {lines}")
+    log("[mesh CLI] python -m repro_torch.launch.serve --index --shards 4 "
+        "--mesh 4 --serve: " + " | ".join(lines))
+    total = sum(mesh_launches.values())
+    log(f"[mesh retrieval] {time.perf_counter() - t_phase:.1f} s; "
+        f"packed_match launches on the mesh path {total} "
+        f"({ {f'{k[0]} {k[1]}': v for k, v in mesh_launches.items()} })")
+    return total
 
 
 def plain_frontend_model():

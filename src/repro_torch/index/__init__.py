@@ -12,9 +12,11 @@
                 windows) and LSH candidates + kernel rerank (in
                 ``lsh_batch`` sub-batches), with batched admission
                 (``submit`` / ``flush``).
-  router.py  -- ``ShardedIndex``: sequential fan-out over shard clients
-                and ``merge_topk``, bit-identical to a single index; live
-                ``append`` / ``refresh``, partial results.
+  router.py  -- ``ShardedIndex``: sequential fan-out over shard clients,
+                or the mesh dispatcher (one stacked corpus and one scan or
+                rerank per mesh position), and ``merge_topk``, bit-identical
+                to a single index; live ``append`` / ``refresh``, partial
+                results.
   transport.py  -- ``ShardService`` / ``SocketShardClient``: the ``bSHr``
                    loopback-TCP shard transport.
   resilience.py -- deadlines, retries, hedging, breakers, chaos.

@@ -25,6 +25,10 @@ estimator rerank:
     each dispatched before any is harvested: host candidate work for
     sub-batch i+1 overlaps the device rerank of sub-batch i.
 
+``exact_scan_ids`` / ``lsh_rerank_ids`` are the same two paths over a
+corpus that carries explicit global doc ids -- one mesh position's
+stacked shards, the bodies of the router's mesh dispatcher.
+
 Top-k order is the reference's ``lax.top_k`` rule: descending score,
 ties toward the earlier position (the lower doc id).  ``torch.topk``
 promises no order among ties, so every top-k here is a stable descending
@@ -199,6 +203,72 @@ def pad_result(best_i: torch.Tensor, best_s: torch.Tensor, q: int, topk: int,
     return SearchResult(out_i, out_s, n_candidates)
 
 
+def match_scores(match: Callable, qwords: torch.Tensor, cwords: torch.Tensor,
+                 meta, q_sizes: Optional[torch.Tensor] = None,
+                 doc_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Q, N) resemblance estimates of ``cwords`` against ``qwords``:
+    ``match`` (the packed-match contract) counts, ``resemblance_scores``
+    debiases -- with the Theorem-1 constants when both set-size vectors
+    are given, for an index of universe 2^``meta.s``."""
+    out = match(qwords, cwords)
+    matches, both_empty = out if meta.sentinel else (out, None)
+    if q_sizes is None or doc_sizes is None:
+        return resemblance_scores(matches, both_empty, meta.k, meta.b)
+    return resemblance_scores(matches, both_empty, meta.k, meta.b,
+                              query_sizes=q_sizes, doc_sizes=doc_sizes,
+                              D=1 << meta.s)
+
+
+def exact_scan_ids(qwords: torch.Tensor, corpus: torch.Tensor,
+                   ids: torch.Tensor, q_sizes: Optional[torch.Tensor],
+                   doc_sizes: Optional[torch.Tensor], *, meta,
+                   match: Callable, block: int, topk: int):
+    """Blocked exact scan over a corpus carrying *explicit* global doc ids
+    (-1 marks a padding row, scored -inf): the per-position body of the
+    mesh fan-out (``repro_torch.index.router``).
+
+    ``corpus`` (rows, words) has a row count that is a multiple of
+    ``block``, its rows in ascending global-id order, so the running
+    top-k's tie rule resolves to the lowest global id within the
+    position.  Returns (best scores, best ids), each (Q, topk), still on
+    the device.
+    """
+    q = qwords.shape[0]
+    dev = corpus.device
+    best_s = torch.full((q, topk), -torch.inf, device=dev)
+    best_i = torch.full((q, topk), -1, dtype=torch.int64, device=dev)
+    for lo in range(0, corpus.shape[0], block):
+        idblk = ids[lo:lo + block]
+        sc = match_scores(match, qwords, corpus[lo:lo + block], meta,
+                          q_sizes, None if doc_sizes is None
+                          else doc_sizes[lo:lo + block])
+        sc = torch.where(idblk >= 0, sc, -torch.inf)
+        best_s, best_i = topk_merge(best_s, best_i, sc, idblk)
+    return best_s, best_i
+
+
+def lsh_rerank_ids(qwords: torch.Tensor, corpus: torch.Tensor,
+                   ids: torch.Tensor, cand: torch.Tensor,
+                   member: torch.Tensor, q_sizes: Optional[torch.Tensor],
+                   doc_sizes: Optional[torch.Tensor], *, meta,
+                   match: Callable, topk: int):
+    """Candidate gather + kernel rerank over a corpus carrying explicit
+    global doc ids: the per-position body of the mesh LSH fan-out.
+
+    ``cand`` (C,) holds row indices into ``corpus`` in ascending global-id
+    order; ``member`` (Q, C) says which are each query's candidates.
+    Padding slots point at row 0 with ``member`` False: they score -inf
+    and surface id -1.  The scores are ``IndexSearcher``'s, element for
+    element.  Returns (top scores, top ids), each (Q, topk).
+    """
+    sc = match_scores(match, qwords, corpus.index_select(0, cand), meta,
+                      q_sizes, None if doc_sizes is None else doc_sizes[cand])
+    sc = torch.where(member, sc, -torch.inf)
+    top_s, sel = topk_desc(sc, topk)
+    top_i = torch.where(torch.isneginf(top_s), -1, ids[cand][sel])
+    return top_s, top_i
+
+
 class BatchedAdmission:
     """The submit/flush protocol shared by ``IndexSearcher`` and the
     sharded router: hosts provide ``spec``, ``device`` and ``search``."""
@@ -340,15 +410,10 @@ class IndexSearcher(BatchedAdmission):
     def _score(self, qwords, cwords, doc_ids, q_sizes):
         """Kernel match counts -> resemblance estimates for the docs
         ``doc_ids`` (a slice or an index tensor) of the corpus."""
-        meta = self.index.meta
-        out = self.match_counts(qwords, cwords)
-        matches, both_empty = out if meta.sentinel else (out, None)
-        if q_sizes is None:
-            return resemblance_scores(matches, both_empty, meta.k, meta.b)
-        return resemblance_scores(matches, both_empty, meta.k, meta.b,
-                                  query_sizes=q_sizes,
-                                  doc_sizes=self._doc_sizes[doc_ids],
-                                  D=1 << meta.s)
+        return match_scores(self.match_counts, qwords, cwords,
+                            self.index.meta, q_sizes,
+                            None if q_sizes is None
+                            else self._doc_sizes[doc_ids])
 
     # -- exact brute force ------------------------------------------------
     def _exact(self, qwords, topk: int, q_sizes):

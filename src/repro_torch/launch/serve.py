@@ -28,7 +28,7 @@ clock that waits for the device, as the reference does.
     PYTHONPATH=src python -m repro_torch.launch.serve --index
         [--mode exact|lsh] [--docs N] [--queries N] [--requests N]
         [--topk K] [--k K] [--b B] [--scheme S] [--densify D]
-        [--threshold T] [--shards S] [--device-window BYTES]
+        [--threshold T] [--shards S [--mesh D]] [--device-window BYTES]
         [--serve --rate QPS --zipf-alpha A --max-delay-ms MS --workers N
          --admission none|reject|shed-oldest|degrade-to-lsh --max-queue Q
          --on-shard-failure fail|partial --deadline-budget-ms MS
@@ -36,7 +36,10 @@ clock that waits for the device, as the reference does.
 
 Makes a synthetic corpus, hashes it to packed ``.sig`` shards
 (``preprocess_shards``), builds the banded ``.idx`` (or ``--shards S``
-of them behind a ``ShardedIndex``), then serves ``--requests`` batches of
+of them behind a ``ShardedIndex``; ``--mesh D`` places them on a ``("data",)``
+mesh of D positions, clamped to the cards present -- on the CPU, D
+positions on the one CPU -- and searches through the mesh dispatcher),
+then serves ``--requests`` batches of
 ``--queries`` corpus rows through ``submit`` / ``flush`` and prints the
 p50 / max batch latency, q/s and self-hit@1.
 ``--device-window`` caps the device-resident packed corpus bytes
@@ -105,11 +108,17 @@ def serve_index(args) -> None:
             t_build = time.perf_counter() - t0
             n_total = sum(m.n for _, m in built)
             payload = sum(m.payload_bytes for _, m in built)
+            mesh = _serving_mesh(args.mesh, dev) if args.mesh else None
             searcher = load_sharded(
-                shard_dir, device=dev, max_device_bytes=args.device_window,
+                shard_dir, device=dev, mesh=mesh,
+                max_device_bytes=args.device_window,
                 on_shard_failure=args.on_shard_failure or "fail")
             words_of = _sharded_row_reader(searcher)
             what = f"{args.shards} shards"
+            if mesh is not None:
+                what += (f" on {mesh.size} device(s) (mesh exact dispatch"
+                         + (", positions on the CPU)" if dev.type == "cpu"
+                            else ")"))
             streamed = any(s.streamed for s in searcher.searchers)
         else:
             path = os.path.join(tmp, "corpus.idx")
@@ -282,6 +291,19 @@ def serve_recsys(args) -> None:
           f"p50={lat[len(lat) // 2]:.1f}ms p99={lat[-1]:.1f}ms")
 
 
+def _serving_mesh(n: int, dev: torch.device):
+    """A ``("data",)`` mesh of ``n`` positions: one per card, clamped to
+    the cards present, as the reference clamps to its devices; on the CPU,
+    ``n`` positions on the one CPU (the reference's forced host
+    devices)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if dev.type == "cpu":
+        return make_debug_mesh(n, axes=("data",), devices=[dev] * n)
+    return make_debug_mesh(min(n, torch.cuda.device_count()),
+                           axes=("data",))
+
+
 def _sharded_row_reader(sharded):
     """Global doc id -> packed query row, off the shards' mmaps."""
     offsets = list(sharded.offsets) + [sharded.n]
@@ -321,6 +343,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=1,
                     help="serve through a ShardedIndex router over S "
                          ".idx shards")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="place the shards round-robin on a D-position "
+                         '("data",) mesh and search through the mesh '
+                         "dispatcher (--index --shards; clamped to the "
+                         "cards present; 0 = the sequential fan-out)")
     ap.add_argument("--device-window", type=int, default=None,
                     help="max device-resident packed-corpus bytes; larger "
                          "corpora stream mmap windows (--index)")
@@ -336,7 +363,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "queued request waits before a flush (--serve)")
     ap.add_argument("--workers", type=int, default=None,
                     help="dispatch workers draining the admission queue, "
-                         "each on its own CUDA stream (--serve; default 1)")
+                         "each on its own CUDA stream (--serve; default: "
+                         "one per --mesh position, else 1)")
     ap.add_argument("--admission", default="none",
                     choices=("none", "reject", "shed-oldest",
                              "degrade-to-lsh"),
@@ -370,6 +398,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.mesh and not (args.index and args.shards > 1):
+        ap.error("--mesh D places shards: it needs --index --shards S > 1")
     if args.index:
         serve_index(args)
         return

@@ -81,6 +81,7 @@ from repro_torch.index.query import BatchedAdmission
 from repro_torch.obs.metrics import Sample, get_registry
 from repro_torch.obs.trace import get_tracer
 from repro_torch.roofline.search import exact_scan_cost, roofline_gap
+from repro_torch.sharding.rules import data_axis_devices
 
 
 def _percentile(samples, q: float) -> float:
@@ -377,9 +378,10 @@ class SearchServer:
     ``spec`` and a ``device`` (``IndexSearcher`` or ``ShardedIndex``);
     ``num_workers`` dispatch workers drain the shared admission queue,
     each through its own private admission handle and, on the card, its
-    own CUDA stream, so flushes overlap (default 1: one card).  A flush
-    fires when the queue holds ``max_batch`` requests, when the oldest
-    request has waited ``max_delay_s``, or when a request's deadline
+    own CUDA stream, so flushes overlap (default: one per position of the
+    searcher's mesh, else 1).  A flush fires when the queue holds
+    ``max_batch`` requests, when the oldest request has waited
+    ``max_delay_s``, or when a request's deadline
     minus the estimated flush latency (EWMA of recent flushes) is about
     to pass.  ``refresh=True`` (default) calls ``searcher.refresh()``
     -- when it has one -- before each flush wave (one worker at a time,
@@ -467,9 +469,12 @@ class SearchServer:
 
     @staticmethod
     def _default_workers(searcher) -> int:
-        """1: the port serves one card (the reference's one worker per
-        mesh device waits for the mesh path)."""
-        return 1
+        """One worker per position on the searcher's mesh ``"data"`` axis
+        (overlapping flushes keep every position busy), else 1."""
+        mesh = getattr(searcher, "mesh", None)
+        if mesh is None:
+            return 1
+        return max(1, len(data_axis_devices(mesh)))
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "SearchServer":

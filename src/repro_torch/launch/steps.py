@@ -38,8 +38,8 @@ autograd.  ``build_cell`` refuses a cell the arch skips.
 
 ``init_inputs(program, generator)`` draws a batch of inputs in the
 reference's ranges.  The reference's sharding specs and shape-only avals
-belong to the mesh path (``ROADMAP.md`` queue 1, "The multi-GPU mesh
-path").
+belong to training on a mesh (``ROADMAP.md`` queue 1, "Training on a
+mesh").
 """
 
 from __future__ import annotations

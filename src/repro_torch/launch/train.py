@@ -19,7 +19,7 @@ batches the unbroken one would; ``--steps`` is the run's total, resumed
 steps included.  Prints the parameter count, the reference's
 ``optimizer=fused-adafactor`` (it prints that for every train cell), and
 the first and last loss.  ``--mesh`` is refused: it is ``ROADMAP.md``'s
-"The multi-GPU mesh path".
+"Training on a mesh".
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def main(argv=None) -> TrainState:
     args = ap.parse_args(argv)
     if args.mesh != "none":
         ap.error(f"--mesh {args.mesh} is not ported: ROADMAP.md queue 1, "
-                 "\"The multi-GPU mesh path\"")
+                 "\"Training on a mesh\"")
     try:
         get_arch(args.arch)
         cell = args.cell or _train_cell_name(args.arch)

@@ -9,7 +9,7 @@ O(T*k) bookkeeping, no (T, E, C) one-hot tensor.  DeepSeek-MoE structure:
 sigmoid (aux-loss-free) or softmax routing.
 
 The reference's expert-parallel ``moe_ffn_ep`` belongs to the mesh path
-(``ROADMAP.md`` queue 1, "The multi-GPU mesh path"); ``moe_ffn`` here is
+(``ROADMAP.md`` queue 1, "Training on a mesh"); ``moe_ffn`` here is
 the reference's single-device ``_moe_ffn_dense``.
 """
 

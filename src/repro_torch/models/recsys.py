@@ -27,7 +27,7 @@ dict (``model.params()`` by default): training differentiates that tree
 (``torch.autograd.grad``), with the model supplying the config, the
 coefficients and the frontend's two calls.  The reference's
 ``sharding.rules.constrain`` calls are no-ops without a mesh and are left
-out (``ROADMAP.md`` queue 1, "The multi-GPU mesh path").
+out (``ROADMAP.md`` queue 1, "Training on a mesh").
 """
 
 from __future__ import annotations

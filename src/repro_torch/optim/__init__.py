@@ -2,7 +2,7 @@
 pair, its transforms, learning-rate schedules, SGD, AdamW, Adafactor and
 the fused Adafactor that recsys training runs.
 
-``compression.py`` comes with the multi-GPU mesh path (ROADMAP queue 1)."""
+``compression.py`` comes with training on a mesh (ROADMAP queue 1)."""
 
 from repro_torch.optim.base import (Optimizer, add_decayed_weights,
                                     apply_updates, chain, clip_by_global_norm,

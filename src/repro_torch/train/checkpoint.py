@@ -10,7 +10,7 @@ Arrays are keyed by their tree paths (``repro_torch.tree``: ``params/w``,
 as uint16 and listed under ``bf16_keys``, as the reference stores it: a
 checkpoint written by either package restores in the other.  (``np.savez``
 stamps zip times, so the files are not byte-identical; the arrays are.)
-Resharded restore waits for the multi-GPU mesh path.
+Resharded restore waits for training on a mesh (ROADMAP queue 1).
 """
 
 from __future__ import annotations

@@ -30,8 +30,8 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-# the batch-learning, recsys, LM and GNN slices' modules, which the walk
-# must have reached
+# the batch-learning, recsys, LM, GNN and retrieval-mesh slices' modules,
+# which the walk must have reached
 required = ["repro_torch." + m for m in (
     "core.minhash", "core.vw", "core.lsh", "optim", "optim.base",
     "optim.schedules", "optim.optimizers", "train.trainer",
@@ -40,7 +40,8 @@ required = ["repro_torch." + m for m in (
     "models.attention", "models.transformer", "models.moe", "models.layers",
     "configs.deepseek_7b", "configs.yi_34b", "configs.mistral_large_123b",
     "configs.llama4_scout", "configs.deepseek_v3_671b", "models.gnn",
-    "configs.gatedgcn", "roofline.analysis", "roofline.hardware")]
+    "configs.gatedgcn", "roofline.analysis", "roofline.hardware",
+    "launch.mesh", "sharding.rules")]
 for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab

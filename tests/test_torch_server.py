@@ -373,8 +373,9 @@ def test_serve_cli_serves_on_cpu(capsys, tmp_path):
             args.on_shard_failure, args.zipf_alpha) == \
         ("shed-oldest", 64, 20.0, "partial", 1.3)
     assert serve.build_parser().parse_args([]).workers is None
-    with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--mesh", "4"])
+    assert serve.build_parser().parse_args(["--mesh", "4"]).mesh == 4
+    with pytest.raises(SystemExit):          # a mesh needs --shards S > 1
+        serve.main(["--index", "--mesh", "2", "--device", "cpu"])
 
 
 def test_new_entry_points_need_cuda_unless_cpu(corpus, monkeypatch):

@@ -437,9 +437,9 @@ def test_append_needs_a_loaded_router_and_mesh_is_not_ported(corpus):
     with pytest.raises(ValueError, match="load_sharded"):
         plain.append(corpus["paths"][:1])
     assert plain.refresh() is False
-    with pytest.raises(NotImplementedError, match="multi-GPU mesh"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         ShardedIndex([index], device="cpu", dispatch="mesh")
-    with pytest.raises(NotImplementedError, match="multi-GPU mesh"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         plain.search(corpus["words"][:1], 3, dispatch="mesh")
     with pytest.raises(ValueError, match="max_shard_docs"):
         ShardedIndex([index], device="cpu", max_shard_docs=0)
