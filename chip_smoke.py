@@ -71,8 +71,14 @@ serves phase 5's 4 shards through the mesh dispatcher
 (``ShardedIndex(mesh=...)``) on a mesh of 1 position and of 4 positions
 on cuda:0, exact and LSH flushes held against phase 5's answers and timed
 beside the sequential fan-out, then runs ``launch.serve --index --shards
-4 --mesh 4 --serve``.  Scratch data goes to ``build/smoke/`` and is
-removed at the end.  It
+4 --mesh 4 --serve``.  Phase 14 trains on a process mesh over NCCL (a
+group of this process alone, world 1): deepseek-7b and llama4-scout
+``train_4k`` at phase 11's cut (llama4's MoE through ``moe_ffn_ep``) and
+GatedGCN ``minibatch_lg``, meshed beside unmeshed on the same weights and
+batches, float32 gradients and the MoE layer at published widths held to
+the unmeshed path, and ``torchrun ... launch.train --mesh debug`` with one
+rank a card; no kernel of ours there either.  Scratch data goes to
+``build/smoke/`` and is removed at the end.  It
 exits non-zero, with no result line, when there is no CUDA device, when
 it is not run from a checkout, or when any check fails.
 
@@ -385,6 +391,21 @@ GNN_ORACLE_TOL = 1e-5
 # from run to run) against deterministic algorithms: sums of ~25 terms a
 # node, 16 layers, a mean over the nodes; ~1e-7 expected
 GNN_DET_REL = 1e-5
+
+# Training on a process mesh (phase 14): NCCL, a process group of this
+# process alone (in-process cases) and a torchrun world of every card (the
+# launcher).  Cases at the shapes phase 11 / 12 train: deepseek-7b 8 layers
+# at 4,096 positions, llama4-scout 2 layers (16 experts through
+# moe_ffn_ep), GatedGCN minibatch_lg's padded subgraph shape, uncut.
+MESH_TRAIN_RUNS = {"deepseek-7b": (8, 4_096),
+                   "llama4-scout-17b-a16e": (2, 4_096)}
+MESH_TIMED = 3                # timed steps, after one untimed step
+MESH_CLI_STEPS = 4
+# the MoE layer at llama4-scout's published widths (d 5,120, 16 experts of
+# d_ff 8,192, top-1, a shared expert), float32, expert-parallel against
+# _moe_ffn_dense at a capacity that drops nothing: the same products and
+# one more sum order, ~1e-7 relative expected
+MOE_EP_TOKENS, MOE_EP_REL = 4_096, 1e-5
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -1152,6 +1173,9 @@ def run(torch) -> int:
 
     # -- phase 13: phase 5's shards on a device mesh ----------------------
     rows["packed_match"]["launches"] += mesh_retrieval(torch, served)
+
+    # -- phase 14: training on a process mesh (no kernel of ours) ---------
+    mesh_training(torch, dev)
     log(smi)               # the card beside the numbers at the output's end
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
@@ -3614,6 +3638,349 @@ def lm_training(torch, dev) -> None:
         f": {r['step_ms']:.1f} ms a step ({r['tokens_s']:,.0f} tokens/s; "
         f"bound {r['bound_ms']:.1f}), peak {r['peak']:,} B"
         for a, r in summary.items()))
+
+
+def mesh_training(torch, dev) -> None:
+    """Phase 14: training on a process mesh over NCCL.  In this process, a
+    process group of one rank and a (1, 1) ("data", "model") mesh: the
+    deepseek-7b and llama4-scout ``train_4k`` steps (``MESH_TRAIN_RUNS``,
+    phase 11's cut: published widths, bfloat16, the published optimizer
+    and microbatch count) and GatedGCN ``minibatch_lg`` through
+    ``place_params`` / ``init_opt_state`` / ``place_inputs`` and the
+    cell's step on DTensors, each timed beside the unmeshed step on the
+    same weights and batches (ms a step and the process's CPU ms of each
+    synchronized step, tokens or edges a second, the allocator peak,
+    launches, kernel ms and collectives of a profiled step, the host ms
+    of the mesh step's own work).
+    Gates: in float32 at depth 2 and 256 positions the meshed loss and
+    every gradient against the unmeshed step's (``MICRO_REL``); the MoE
+    layer at llama4-scout's published widths through ``moe_ffn_ep``
+    against ``_moe_ffn_dense`` at a capacity that drops nothing, with
+    both paths' dropped counts at the published factor; GatedGCN's meshed
+    loss against the unmeshed one under deterministic algorithms
+    (``GNN_DET_REL``); then ``torchrun --nproc-per-node <cards> -m
+    repro_torch.launch.train --arch deepseek-7b --mesh debug``."""
+    import dataclasses
+    import math
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputSpec
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import gnn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.params import lm_param_specs
+    from repro_torch.sharding.rules import entries_of, set_mesh
+    from repro_torch.tree import path_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = torch.cuda.device_count()
+    mesh = make_process_mesh((1, 1), ("data", "model"), device="cuda")
+    log(f"[mesh train] process group: {dist.get_backend()}, world "
+        f"{dist.get_world_size()} (this process; the launcher below runs "
+        f"one rank a card, world {cards}), mesh {mesh.shape}: every number "
+        f"in this phase is at world 1")
+
+    def counts(fn):
+        """(wall ms, kernel launches, their summed device ms, collectives:
+        NCCL's kernels) of one call of ``fn`` under the profiler (device
+        activity only)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        launches = sum(e.count for e in ev
+                       if e.device_type == DeviceType.CUDA)
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        coll = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+                   and "nccl" in e.key.lower())
+        return wall, launches, busy, coll
+
+    def lm_cell(arch, depth, batch, seq, **changes):
+        prog = st.build_cell(arch, "train_4k", smoke=False, device=dev)
+        cfg = prog.config
+        cfg = dataclasses.replace(cfg, n_layers=depth, n_dense_layers=min(
+            cfg.n_dense_layers, depth - 1 if cfg.is_moe else 0), **changes)
+        specs = {k: InputSpec((batch, seq), torch.int32)
+                 for k in ("tokens", "labels")}
+        return dataclasses.replace(prog, config=cfg, input_specs=specs)
+
+    def run_steps(prog, batches, meshed):
+        """Weights from the seed, one untimed step, ``MESH_TIMED`` timed
+        steps (each synchronized: its ms on the host clock and the
+        process's CPU ms), then one profiled step.  Returns a dict of
+        the numbers; meshed, also the
+        host ms of the mesh step's own work (``place_inputs``; the
+        leaves' axes, local shards and DTensor rewrapping)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = prog.init_params(torch.Generator(device=dev).manual_seed(
+            SEED + 140))
+        params = model.params()
+        if meshed:
+            with set_mesh(mesh):
+                params = st.place_params(prog, params, mesh)
+                state = st.init_opt_state(prog, params)
+        else:
+            state = prog.optimizer.init(params)
+
+        def step(params, state, batch):
+            if not meshed:
+                return prog.step(model, params, state, batch)
+            with set_mesh(mesh):
+                return prog.step(None, params, state,
+                                 st.place_inputs(prog, batch))
+
+        params, state, loss = step(params, state, batches[0])
+        losses, walls, cpus = [float(loss)], [], []
+        for b in batches[1:MESH_TIMED + 1]:
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            params, state, loss = step(params, state, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            cpus.append((time.process_time() - c0) * 1e3)
+            losses.append(float(loss))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{prog.arch_id} meshed={meshed}: {losses}")
+        out = {"losses": losses, "ms": sum(walls) / len(walls),
+               "walls": walls, "cpus": cpus,
+               "peak": torch.cuda.max_memory_allocated()}
+        out["profile"] = counts(lambda: step(params, state, batches[-1]))
+        if meshed:
+            with set_mesh(mesh):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st.place_inputs(prog, batches[1])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
+                         params)
+                for tree in (params, state):
+                    st._rewrap(tree, tree_map(lambda t: t.to_local(), tree))
+                t2 = time.perf_counter()
+            out["wrapper"] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        del model, params, state
+        return out
+
+    def report(what, unit, per_step, plain, meshed):
+        for name, r in (("unmeshed", plain), ("meshed", meshed)):
+            wall, launches, busy, coll = r["profile"]
+            extra = ""
+            if "wrapper" in r:
+                extra = (f"; the mesh step's own host work {r['wrapper'][0]:.2f}"
+                         f" ms place_inputs + {r['wrapper'][1]:.2f} ms axes, "
+                         f"local shards and rewrapping")
+            log(f"[mesh train {what}] {name}: losses "
+                + ", ".join(f"{x:.4f}" for x in r["losses"])
+                + f"; {r['ms']:.1f} ms a step ({per_step / r['ms'] * 1e3:,.0f}"
+                f" {unit}/s, world 1; {MESH_TIMED} steps, each synchronized: "
+                + " / ".join(f"{x:.1f}" for x in r["walls"])
+                + " ms, process CPU " + " / ".join(f"{x:.1f}" for x in r["cpus"])
+                + f" ms); max_memory_allocated {r['peak']:,} B; a profiled "
+                f"step: wall {wall:.1f} ms, "
+                f"{launches:,} launches ({busy:.1f} ms of kernels, "
+                f"{busy / wall:.0%} busy), {coll} collectives" + extra)
+        gap = abs(meshed["losses"][0] - plain["losses"][0]) / abs(
+            plain["losses"][0])
+        log(f"[mesh train {what}] step-0 loss meshed vs unmeshed: relative "
+            f"{gap:.2e}; meshed / unmeshed step time "
+            f"{meshed['ms'] / plain['ms']:.3f}")
+
+    summary = {}
+    for arch, (depth, seq) in MESH_TRAIN_RUNS.items():
+        t_arch = time.perf_counter()
+        m = get_arch(arch).config.microbatch
+        prog = lm_cell(arch, depth, m, seq)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 141)
+        batches = [st.init_inputs(prog, gen) for _ in range(MESH_TIMED + 2)]
+        plain = run_steps(prog, batches, False)
+        meshed = run_steps(prog, batches, True)
+        report(f"{arch} {depth} layers, {m} x {seq:,}, {prog.config.param_dtype}",
+               "tokens", m * seq, plain, meshed)
+        summary[arch] = (plain, meshed)
+        log(f"[mesh train {arch}] {time.perf_counter() - t_arch:.1f} s")
+
+    # -- float32 gates at depth 2, 256 positions ------------------------
+    for arch in MESH_TRAIN_RUNS:
+        m = get_arch(arch).config.microbatch
+        prog = dataclasses.replace(lm_cell(
+            arch, CHECK_DEPTH, m, TRAIN_CHECK_SEQ, attn_blk=TRAIN_CHECK_BLK,
+            ce_chunk=TRAIN_CHECK_BLK, remat=False,
+            param_dtype=torch.float32), microbatch=1)
+        cfg = prog.config
+        gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+        model = prog.init_params(gen)
+        batch = st.init_inputs(prog, gen)
+        frozen = TRAIN_FROZEN.get(arch, ())
+        params = model.params()
+        names = [k for k, _ in path_leaves(params) if k not in frozen]
+
+        def grads(loss_fn, tree):
+            leaves = dict(path_leaves(tree))
+            for k in names:
+                leaves[k].requires_grad_(True)
+            loss = loss_fn(tree)
+            g = torch.autograd.grad(loss, [leaves[k] for k in names])
+            for k in names:
+                leaves[k].requires_grad_(False)
+            return float(loss.detach()), dict(zip(names, g))
+
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            l_plain, g_plain = grads(
+                lambda p: tfm.train_loss(p, batch, cfg),
+                tree_map(lambda t: t.detach(), params))
+            with set_mesh(mesh):
+                placed = st.place_params(prog, params, mesh)
+                ents = tree_map(lambda t: entries_of(t.placements, mesh,
+                                                     t.dim()), placed)
+                inputs = st.place_inputs(prog, batch)
+                shards = spmd.Shards(mesh, rows=entries_of(
+                    inputs["tokens"].placements, mesh, 2)[0])
+                local = {k: v.to_local() for k, v in inputs.items()}
+                l_mesh, g_mesh = grads(
+                    lambda p: tfm.train_loss(p, local, cfg, shards, ents),
+                    tree_map(lambda t: t.to_local().detach(), placed))
+        finally:
+            torch.use_deterministic_algorithms(was)
+        worst, leaf = 0.0, None
+        floor = 1e-3 * max(float(g.norm()) for g in g_plain.values())
+        for k in names:
+            rel = float((g_mesh[k] - g_plain[k]).norm()) / max(
+                float(g_plain[k].norm()), floor)
+            if rel > worst:
+                worst, leaf = rel, k
+        loss_rel = abs(l_mesh - l_plain) / abs(l_plain)
+        if not (loss_rel <= MICRO_REL and worst <= MICRO_REL):
+            raise AssertionError(f"{arch} float32 meshed vs unmeshed: loss "
+                                 f"{loss_rel:.2e}, gradient {leaf} "
+                                 f"{worst:.2e} (bound {MICRO_REL})")
+        log(f"[mesh train {arch}] float32, depth {CHECK_DEPTH}, {m} x "
+            f"{TRAIN_CHECK_SEQ}, deterministic algorithms, gradients of "
+            f"{len(names)} leaves"
+            + (f" (not {', '.join(frozen)})" if frozen else "")
+            + f": meshed vs unmeshed loss {l_mesh:.6f} vs {l_plain:.6f} "
+            f"(relative {loss_rel:.2e}), gradient relative L2 max "
+            f"{worst:.2e} ({leaf}; bound {MICRO_REL})")
+        del model, params, placed, g_plain, g_mesh
+        torch.cuda.empty_cache()
+
+    # -- the MoE layer at llama4-scout's published widths -----------------
+    lcfg = get_arch("llama4-scout-17b-a16e").config
+    pub = lcfg.moe
+    gen = torch.Generator(device=dev).manual_seed(SEED + 143)
+    draw = lambda shape, s, dt: torch.randn(shape, generator=gen,
+                                            device=dev) * s
+    p = moe_lib.init_moe_params(draw, lcfg.d_model, pub, torch.float32)
+    x = torch.randn((MOE_EP_TOKENS, lcfg.d_model), generator=gen, device=dev)
+    no_drop = dataclasses.replace(pub, capacity_factor=float(pub.n_experts))
+    with torch.no_grad():
+        dense = moe_lib._moe_ffn_dense(p, x, no_drop)
+        with set_mesh(mesh):
+            pd = st.place_tree(p, lm_param_specs(p), mesh)
+            ep = moe_lib.moe_ffn_ep(pd, x, no_drop, mesh).full_tensor()
+        rel = float((ep - dense).norm() / dense.norm())
+        topv, topi = moe_lib.route(p, x, pub)
+        kept_dense = moe_lib.dispatch(topv, topi, pub.n_experts,
+                                      moe_lib._capacity(MOE_EP_TOKENS,
+                                                        pub)).keep
+        *_, kept_ep = moe_lib._dispatch_local(
+            x, topi.reshape(-1), topv.reshape(-1), pub.top_k,
+            pub.n_experts, moe_lib._capacity_local(MOE_EP_TOKENS, pub))
+    if not rel <= MOE_EP_REL:
+        raise AssertionError(f"moe_ffn_ep vs _moe_ffn_dense: {rel:.2e}")
+    n_assign = MOE_EP_TOKENS * pub.top_k
+    log(f"[mesh train moe] llama4-scout's MoE layer at published widths "
+        f"(d {lcfg.d_model}, {pub.n_experts} experts of d_ff {pub.d_ff}, "
+        f"top-{pub.top_k}, shared expert), float32, {MOE_EP_TOKENS:,} "
+        f"tokens: moe_ffn_ep (local_map, world 1) vs _moe_ffn_dense at "
+        f"capacity factor {no_drop.capacity_factor:g} (nothing dropped): "
+        f"relative L2 {rel:.2e} (bound {MOE_EP_REL}); at the published "
+        f"factor {pub.capacity_factor} the dense path drops "
+        f"{n_assign - int(kept_dense.sum())} and the expert-parallel path "
+        f"{n_assign - int(kept_ep.sum())} of {n_assign:,} assignments "
+        f"(capacities {moe_lib._capacity(MOE_EP_TOKENS, pub)} and "
+        f"{moe_lib._capacity_local(MOE_EP_TOKENS, pub)})")
+    del p, pd, x, dense, ep
+    torch.cuda.empty_cache()
+
+    # -- GatedGCN minibatch_lg, uncut -------------------------------------
+    prog = st.build_cell("gatedgcn", "minibatch_lg", smoke=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 144)
+    batches = [st.init_inputs(prog, gen) for _ in range(MESH_TIMED + 2)]
+    n_edges = int(batches[0]["edge_mask"].sum())
+    plain = run_steps(prog, batches, False)
+    meshed = run_steps(prog, batches, True)
+    report(f"gatedgcn minibatch_lg {batches[0]['node_feats'].shape[0]:,} "
+           f"nodes x {n_edges:,} edges", "edges", n_edges, plain, meshed)
+    summary["gatedgcn"] = (plain, meshed)
+    model = prog.init_params(torch.Generator(device=dev).manual_seed(
+        SEED + 140))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            a = float(gnn.gnn_loss(model.params(), batches[0], prog.config))
+            with set_mesh(mesh):
+                placed = st.place_params(prog, model.params(), mesh)
+                ents = tree_map(lambda t: entries_of(t.placements, mesh,
+                                                     t.dim()), placed)
+                inputs = st.place_inputs(prog, batches[0])
+                axes = lambda k: entries_of(
+                    inputs[k].placements, mesh, inputs[k].dim())[0]
+                b = float(gnn.gnn_loss(
+                    tree_map(lambda t: t.to_local(), placed),
+                    {k: v.to_local() for k, v in inputs.items()},
+                    prog.config, spmd.Shards(mesh, axes("node_feats"),
+                                             axes("edge_mask")), ents))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    gap = abs(a - b) / abs(a)
+    if not gap <= GNN_DET_REL:
+        raise AssertionError(f"gatedgcn meshed loss {b} vs {a}")
+    log(f"[mesh train gatedgcn] meshed vs unmeshed loss under deterministic "
+        f"algorithms: {b:.7f} vs {a:.7f} (relative {gap:.2e}, bound "
+        f"{GNN_DET_REL})")
+    del model, placed, batches
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # -- the launcher under torchrun, one rank a card ---------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(cards), "-m", "repro_torch.launch.train",
+         "--arch", "deepseek-7b", "--mesh", "debug", "--steps",
+         str(MESH_CLI_STEPS)], env=env, capture_output=True, text=True,
+        timeout=600)
+    lines = [l for l in out.stdout.splitlines() if l.strip()]
+    if out.returncode != 0 or not lines or not lines[-1].startswith(
+            "loss: first="):
+        raise AssertionError(f"torchrun train --mesh debug: rc "
+                             f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    log(f"[mesh train CLI] python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {cards} -m repro_torch.launch.train --arch "
+        f"deepseek-7b --mesh debug --steps {MESH_CLI_STEPS} (NCCL, world "
+        f"{cards}): {' | '.join(lines)} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[mesh train] {time.perf_counter() - t_phase:.1f} s; world 1: "
+        + "; ".join(f"{k}: {v[1]['ms']:.1f} ms a step meshed vs "
+                    f"{v[0]['ms']:.1f} unmeshed, peak {v[1]['peak']:,} vs "
+                    f"{v[0]['peak']:,} B" for k, v in summary.items()))
 
 
 def gnn_bound(hw, cfg, n: int, e: int) -> tuple:

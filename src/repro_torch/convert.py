@@ -220,3 +220,16 @@ def gnn_params_from_jax(params, cfg: GNNConfig,
     the same arch and cell."""
     return GNNModel(cfg, tree_from_numpy(params, device,
                                          float_dtype=cfg.param_dtype))
+
+
+def params_to_mesh(params, program, mesh):
+    """A reference parameter tree (numpy arrays or anything ``np.asarray``
+    reads) -> the port's tree on a process mesh: each leaf a DTensor under
+    ``program.param_specs``, each rank keeping its chunk on its device (the
+    whole tree is read on the host by every rank; only the chunks reach
+    the device).  Leaves keep their types as ``lm_params_from_jax`` /
+    ``gnn_params_from_jax`` keep them."""
+    from repro_torch.launch.steps import place_params
+    dtype = program.config.param_dtype if program.family == "gnn" else None
+    return place_params(program, tree_from_numpy(params, "cpu",
+                                                 float_dtype=dtype), mesh)

@@ -1,7 +1,19 @@
 """Device meshes (port of ``repro.launch.mesh``).
 
-A ``Mesh`` is what ``jax.sharding.Mesh`` is to the reference: an array of
-device *positions* with axis names, addressed by one controlling process.
+Two kinds of mesh, with the same ``axis_names`` / ``shape`` surface, so
+that the sharding rules (``spec``, ``_resolve``, ``moe.ep_layout``) serve
+both:
+
+  * ``Mesh`` -- what ``jax.sharding.Mesh`` is to the reference's
+    retrieval fan-out: an array of device *positions* with axis names,
+    addressed by one controlling process (``make_debug_mesh``);
+  * ``ProcessMesh`` -- training on a mesh: every position is a rank of a
+    ``torch.distributed`` process group, one process per card (NCCL
+    refuses two ranks on one card; gloo runs ranks on the CPU), carrying
+    a ``torch.distributed.device_mesh.DeviceMesh`` of the same axis names
+    and shape, and a process group per set of axes
+    (``make_process_mesh``, ``make_production_mesh``).
+
 Production shapes: a single pod (16, 16) over ("data", "model"), and
 multi-pod (2, 16, 16) over ("pod", "data", "model") -- the "pod" axis an
 outer data-parallel axis.
@@ -17,12 +29,15 @@ Defined as functions, so importing this module touches no device.
 
 from __future__ import annotations
 
+import itertools
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceLike, resolve_device
 
 
 class Mesh:
@@ -68,14 +83,21 @@ def _position(device) -> torch.device:
     return dev
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
-    "data", "model"), on the first 256 / 512 CUDA devices; raises
-    ``ValueError`` when the process has fewer -- always, in fact: a torch
-    device index has 8 bits, so one process addresses at most 128 cards."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: "DeviceLike" = None) -> "ProcessMesh":
+    """The process mesh (16, 16) over ("data", "model"), or (2, 16, 16)
+    over ("pod", "data", "model"), over a world of 256 / 512 ranks (one
+    card each, from ``torchrun``); raises ``ValueError`` naming the
+    world's size otherwise."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_debug_mesh(int(np.prod(shape)), axes=axes, shape=shape)
+    need = int(np.prod(shape))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != need:
+        raise ValueError(f"mesh shape {shape} needs {need} devices (one "
+                         f"rank each), the world has {world}")
+    return make_process_mesh(shape, axes, device=device)
 
 
 def make_debug_mesh(n_devices: int = 1, *,
@@ -108,3 +130,164 @@ def make_debug_mesh(n_devices: int = 1, *,
     arr = np.empty(need, dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(shape), tuple(axes))
+
+
+# ---------------------------------------------------------------------------
+# The process mesh (training on a mesh)
+# ---------------------------------------------------------------------------
+
+class ProcessMesh:
+    """A mesh whose positions are the ranks of the default process group,
+    laid out row-major over ``axis_names`` (rank r at the coordinates of r
+    in ``shape``), as ``jax.sharding.Mesh`` lays devices out.
+
+    ``device`` is this rank's device; ``device_mesh`` the
+    ``DeviceMesh`` of the same names and shape (what DTensors are placed
+    on); ``coords`` this rank's index along each axis.  ``group(axes)``
+    is the process group of the ranks that differ from this one only
+    along ``axes`` (built for every set of axes up front: every rank must
+    create every group, in one order); ``index(axes)`` this rank's
+    position in it with the first axis of ``axes`` major -- the
+    reference's numbering of an axis tuple, which may differ from the
+    group's own (ascending rank) order."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device: torch.device):
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        dims = tuple(int(n) for n in shape)
+        if len(dims) != len(self.axis_names):
+            raise ValueError(f"a mesh of shape {dims} needs {len(dims)} "
+                             f"axis names, got {self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated mesh axis name in {self.axis_names}")
+        self.world = dist.get_world_size()
+        if int(np.prod(dims)) != self.world:
+            raise ValueError(f"mesh shape {dims} needs {int(np.prod(dims))} "
+                             f"ranks, the world has {self.world}")
+        from torch.distributed.device_mesh import DeviceMesh
+        self.rank = dist.get_rank()
+        self.device = device
+        self.ranks = np.arange(self.world).reshape(dims)
+        self.device_mesh = DeviceMesh(device.type, torch.as_tensor(self.ranks),
+                                      mesh_dim_names=self.axis_names)
+        self.coords: Dict[str, int] = dict(zip(
+            self.axis_names,
+            (int(c) for c in np.unravel_index(self.rank, dims))))
+        self._groups: Dict[Tuple[str, ...], Tuple[object, Tuple[int, ...]]] = {}
+        for n in range(1, len(dims) + 1):
+            for axes in itertools.combinations(self.axis_names, n):
+                self._groups[axes] = self._make_group(axes)
+
+    def _make_group(self, axes):
+        """Every coset of ``axes`` becomes a group (all ranks call
+        ``new_group`` for each, in one order); keep this rank's."""
+        keep = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in keep]
+        arr = np.transpose(self.ranks, rest + keep).reshape(
+            -1, int(np.prod([self.ranks.shape[i] for i in keep])))
+        mine = None
+        for row in arr:
+            ranks = sorted(int(r) for r in row)
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = (g, tuple(ranks))
+        return mine
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.ranks.shape))
+
+    @property
+    def size(self) -> int:
+        return self.world
+
+    def _key(self, axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def extent(self, axes) -> int:
+        """The number of ranks along ``axes`` (1 for none)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        n = 1
+        for a in axes:
+            n *= self.ranks.shape[self.axis_names.index(a)]
+        return n
+
+    def group(self, axes):
+        """The process group along ``axes`` (in any order)."""
+        return self._groups[self._key(axes)][0]
+
+    def group_ranks(self, axes) -> Tuple[int, ...]:
+        """The global ranks of ``group(axes)``, in its (ascending) order."""
+        return self._groups[self._key(axes)][1]
+
+    def index(self, axes) -> int:
+        """This rank's position along ``axes``, the first axis major."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        out = 0
+        for a in axes:
+            out = out * self.shape[a] + self.coords[a]
+        return out
+
+    def order(self, axes) -> Tuple[int, ...]:
+        """For each member of ``group(axes)`` (in group order), its
+        position along ``axes`` with the first axis major: the permutation
+        from the group's order to the reference's numbering."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = self.ranks.shape
+        out = []
+        for r in self.group_ranks(axes):
+            c = dict(zip(self.axis_names, np.unravel_index(r, dims)))
+            idx = 0
+            for a in axes:
+                idx = idx * self.shape[a] + int(c[a])
+            out.append(idx)
+        return tuple(out)
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"ProcessMesh({axes}; rank {self.rank} on {self.device})"
+
+
+def init_process_group(device: DeviceLike = None) -> torch.device:
+    """Join the process group ``torchrun`` describes in the environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``), or,
+    without it, a group of one rank on an in-process store.  ``cuda``
+    means NCCL, with rank r on card ``LOCAL_RANK``; ``cpu`` means gloo.
+    There is no fallback from one to the other.  Returns this rank's
+    device; a group that exists already is kept."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        _PROCESS_MESHES.clear()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, device_id=dev if dev.type == "cuda" else None)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+    return dev
+
+
+_PROCESS_MESHES: Dict[tuple, ProcessMesh] = {}
+
+
+def make_process_mesh(shape: Optional[Sequence[int]] = None,
+                      axes: Sequence[str] = ("data", "model"), *,
+                      device: DeviceLike = None) -> ProcessMesh:
+    """A ``ProcessMesh`` over the process group (joined first if it is not
+    yet: ``init_process_group``).  The default shape puts every rank on
+    the LAST axis, ``(1, world)`` over ("data", "model"): the reference's
+    ``make_debug_mesh(len(jax.devices()))``.  A mesh of one shape, axes
+    and device is built once per process group (its groups with it);
+    every rank must ask for the same meshes in the same order."""
+    dev = init_process_group(device)
+    world = dist.get_world_size()
+    if shape is None:
+        shape = (1,) * (len(axes) - 1) + (world,)
+    key = (tuple(shape), tuple(axes), str(dev))
+    if key not in _PROCESS_MESHES:
+        _PROCESS_MESHES[key] = ProcessMesh(shape, axes, dev)
+    return _PROCESS_MESHES[key]

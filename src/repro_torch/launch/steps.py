@@ -37,9 +37,22 @@ serving steps run under ``torch.inference_mode``, the train steps with
 autograd.  ``build_cell`` refuses a cell the arch skips.
 
 ``init_inputs(program, generator)`` draws a batch of inputs in the
-reference's ranges.  The reference's sharding specs and shape-only avals
-belong to training on a mesh (``ROADMAP.md`` queue 1, "Training on a
-mesh").
+reference's ranges.
+
+The reference's ``PartitionSpec`` trees: ``param_specs`` / ``opt_specs``
+(``sharding.params``, from the parameter and optimizer-state trees on the
+meta device: nothing is allocated, the published configs included),
+``input_specs_tree`` and ``arg_specs()``.  On a process mesh (inside
+``set_mesh``), ``place_params`` / ``place_opt_state`` put whole trees
+under them as DTensors (each rank keeping its chunk) and ``place_inputs``
+a batch (``constrain`` to its input spec: each rank keeps its rows; a
+microbatched LM batch laid out (m, B / m, S) first, so that microbatches
+group the *global* batch as the reference reshapes it); a train step
+given DTensor parameters then runs ``_mesh_step``: the same loss on the
+local shards with explicit collectives (``transformer.train_loss`` /
+``gnn.gnn_loss`` given a ``sharding.spmd.Shards``), the gradients left on
+the shards, the optimizer on the shards (Adafactor's means summed across
+the axes that shard them).
 """
 
 from __future__ import annotations
@@ -58,7 +71,11 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.optimizers import adafactor_fused
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.sharding import spmd
+from repro_torch.sharding.params import opt_state_specs, param_specs_for
+from repro_torch.sharding.rules import PartitionSpec as P
+from repro_torch.tree import (map_with_path, path_leaves, tree_leaves,
+                              tree_map, unflatten_like)
 
 ADAFACTOR_THRESHOLD = 50e9        # parameters above this: Adafactor
 MOMENTUM_FREE_THRESHOLD = 300e9   # and above this, without momentum
@@ -77,6 +94,45 @@ class CellProgram:
     optimizer: Optional[Optimizer] = None   # train kinds
     fused: bool = True                   # the optimizer applies its update
     microbatch: int = 1                  # gradient-accumulation slices
+
+    def param_shapes(self):
+        """The parameter tree on the meta device."""
+        if self.family == "lm":
+            return tfm.param_shapes(self.config)
+        if self.family == "gnn":
+            return gnn_lib.gnn_param_shapes(self.config)
+        return recsys_lib.recsys_param_shapes(self.config)
+
+    def opt_shapes(self):
+        """The optimizer state on the meta device (None for inference)."""
+        if self.optimizer is None:
+            return None
+        return self.optimizer.init(self.param_shapes())
+
+    @property
+    def param_specs(self):
+        return param_specs_for(self.family, self.param_shapes())
+
+    @property
+    def opt_specs(self):
+        if self.optimizer is None:
+            return None
+        shapes = self.param_shapes()
+        return opt_state_specs(param_specs_for(self.family, shapes), shapes,
+                               self.optimizer.init(shapes))
+
+    @property
+    def input_specs_tree(self) -> Dict[str, Any]:
+        if self.family == "lm":
+            return _lm_input_spec_tree(self.kind, self.input_specs)
+        if self.family == "gnn":
+            return _gnn_input_spec_tree(self.input_specs)
+        return _recsys_input_spec_tree(self.input_specs)
+
+    def arg_specs(self) -> Tuple:
+        if self.optimizer is not None:
+            return (self.param_specs, self.opt_specs, self.input_specs_tree)
+        return (self.param_specs, self.input_specs_tree)
 
     def init_params(self, generator: torch.Generator):
         """Fresh weights from ``generator``, which must be on the
@@ -112,6 +168,8 @@ class CellProgram:
             return recsys_lib.retrieval_scores(model, inputs,
                                                self.n_candidates)
         params, opt_state, inputs = args
+        if _is_dtensor(tree_leaves(params)[0]):
+            return _mesh_step(self, params, opt_state, inputs)
         if self.kind == "lm_train":
             loss = lambda p, batch: tfm.train_loss(p, batch, self.config)
             split = tfm.per_layer
@@ -203,6 +261,172 @@ def _make_train_step(loss_fn: Callable, optimizer: Optimizer,
         return params, opt_state, loss
 
     return step
+
+
+# -- input sharding specs per kind ------------------------------------------
+
+def _lm_input_spec_tree(kind: str, specs) -> Dict[str, Any]:
+    if kind in ("lm_train", "lm_prefill"):
+        return {k: P("batch", None) for k in specs}
+
+    # decode: cache entries (L, B, len, ...) -- cache length over "model"
+    # (decode sequence parallelism), batch over "batch"
+    def cache_spec(leaf):
+        if len(leaf.shape) == 5:        # (L, B, len, n_kv, hd)
+            return P(None, "batch", "model", None, None)
+        return P(None, "batch", "model", None)  # (L, B, len, lora/rope)
+
+    def over(tree):            # the cache's dicts, down to its InputSpecs
+        return ({k: over(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else cache_spec(tree))
+
+    return {"cache": over(specs["cache"]), "tokens": P("batch"), "pos": P()}
+
+
+def _gnn_input_spec_tree(specs) -> Dict[str, Any]:
+    spec = {
+        "node_feats": P("batch", None),
+        "edge_index": P(None, ("batch", "model")),
+        "edge_mask": P(("batch", "model")),
+        "labels": P("batch"),
+        "node_mask": P("batch"),
+    }
+    if "graph_ids" in specs:
+        spec["graph_ids"] = P("batch")
+    return spec
+
+
+def _recsys_input_spec_tree(specs) -> Dict[str, Any]:
+    out = {}
+    for k, v in specs.items():
+        rank = len(v.shape)
+        out[k] = P("batch", *([None] * (rank - 1))) if rank else P()
+    return out
+
+
+# -- placement on a process mesh ---------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place_tree(tree, specs, mesh):
+    """Each whole leaf of ``tree`` (the same on every rank) as a DTensor
+    under its spec in ``specs`` (a parameter spec: literal axes, dropped
+    within a tuple where they do not divide)."""
+    from repro_torch.sharding.rules import NamedSharding
+    spec_of = dict(path_leaves(specs))
+    return map_with_path(
+        lambda path, t: NamedSharding(mesh, spec_of[path], greedy=True).place(
+            t.detach()), tree)
+
+
+def place_params(program: "CellProgram", params, mesh):
+    """The parameter tree (whole) under ``param_specs``."""
+    return place_tree(params, program.param_specs, mesh)
+
+
+def place_opt_state(program: "CellProgram", state, mesh):
+    """An optimizer state (whole) under ``opt_specs``."""
+    return place_tree(state, program.opt_specs, mesh)
+
+
+def init_opt_state(program: "CellProgram", params):
+    """``optimizer.init`` of DTensor parameters, on their shards: the
+    state's leaves as DTensors under ``opt_specs``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import NamedSharding, current_mesh
+    mesh = current_mesh()
+    local = program.optimizer.init(tree_map(lambda t: t.to_local(), params))
+    shapes = dict(path_leaves(program.opt_shapes()))
+    spec_of = dict(path_leaves(program.opt_specs))
+
+    def wrap(path, t):
+        full = shapes[path]
+        shd = NamedSharding(mesh, spec_of[path], greedy=True)
+        return DTensor.from_local(t, mesh.device_mesh,
+                                  shd.placements(full.shape),
+                                  run_check=False, shape=full.shape,
+                                  stride=full.stride())
+
+    return map_with_path(wrap, local)
+
+
+def place_inputs(program: "CellProgram", batch: Dict[str, Any]):
+    """A whole batch (the same on every rank) under ``input_specs_tree``
+    on the current mesh: ``constrain`` to each input's spec, so each rank
+    keeps its rows (its edges, for a graph's).  A microbatched LM step's
+    inputs are laid out (m, B / m, S) first, the rows of each microbatch
+    over "batch": the reference reshapes the *global* batch so, and each
+    rank then holds its rows of every microbatch."""
+    from repro_torch.sharding.rules import constrain
+    specs = program.input_specs_tree
+    m = program.microbatch
+    if program.kind == "lm_train" and m > 1:
+        return {k: constrain(v.reshape(m, v.shape[0] // m, *v.shape[1:]),
+                             None, *specs[k]) for k, v in batch.items()}
+    return {k: constrain(v, *specs[k]) for k, v in batch.items()}
+
+
+def _rewrap(like, local):
+    """``local``'s leaves as DTensors placed as ``like``'s."""
+    from torch.distributed.tensor import DTensor
+    return unflatten_like(like, [
+        DTensor.from_local(t, d.device_mesh, d.placements, run_check=False,
+                           shape=d.shape, stride=d.stride())
+        for d, t in zip(tree_leaves(like), tree_leaves(local))])
+
+
+def _axes_of(t, mesh, dim: int) -> Tuple[str, ...]:
+    """The mesh axes a DTensor's ``dim`` is split over, first major."""
+    from repro_torch.sharding.rules import entries_of
+    return tuple(entries_of(t.placements, mesh, t.dim())[dim] or ())
+
+
+def _mesh_step(prog: "CellProgram", params, opt_state, inputs):
+    """The train step on a process mesh (see the module docstring)."""
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.optim.base import Optimizer
+    from repro_torch.sharding.rules import current_mesh, entries_of
+    mesh = current_mesh()
+    if not isinstance(mesh, ProcessMesh):
+        raise ValueError("DTensor parameters need their process mesh "
+                         "current (set_mesh)")
+    ents = tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
+                    params)
+    local = lambda tree: tree_map(lambda t: t.to_local() if _is_dtensor(t)
+                                  else t, tree)
+    opt = prog.optimizer
+    if prog.fused:
+        opt = Optimizer(opt.init, lambda g, s, p: prog.optimizer.update(
+            g, s, p, shards=(ents, mesh)))
+    cfg = prog.config
+    if prog.kind == "lm_train":
+        tokens = inputs["tokens"]
+        if prog.microbatch > 1 and tokens.dim() != 3:
+            raise ValueError("a microbatched step on a mesh takes its batch "
+                             "as place_inputs lays it out, (m, B / m, S)")
+        # each rank's rows of microbatch 0, 1, ... in turn
+        sh = spmd.Shards(mesh, rows=_axes_of(tokens, mesh, -2))
+        batch = {k: v.to_local().flatten(0, -2) for k, v in inputs.items()}
+        loss = lambda p, b: tfm.train_loss(p, b, cfg, sh, ents)
+        split = tfm.per_layer
+    elif prog.family == "gnn":
+        sh = spmd.Shards(mesh, rows=_axes_of(inputs["node_feats"], mesh, 0),
+                         edges=_axes_of(inputs["edge_mask"], mesh, 0))
+        batch = {k: (spmd.gather(v.to_local(), 0, mesh, _axes_of(v, mesh, 0))
+                     if k == "labels" and cfg.readout == "graph"
+                     else v.to_local()) for k, v in inputs.items()}
+        loss = lambda p, b: gnn_lib.gnn_loss(p, b, cfg, sh, ents)
+        split = None
+    else:
+        raise ValueError(f"{prog.arch_id}: {prog.kind} on a mesh is not "
+                         "ported (ROADMAP.md queue 1, \"recsys on a mesh\")")
+    p_loc, s_loc, loss_v = _make_train_step(
+        loss, opt, prog.microbatch, prog.fused, split)(
+            local(params), local(opt_state), batch)
+    return _rewrap(params, p_loc), _rewrap(opt_state, s_loc), loss_v
 
 
 def build_cell(arch_id: str, cell_name: str, smoke: bool = False,

@@ -5,6 +5,7 @@ and GNN families.
         --arch wide-deep|autoint|din|mind|gatedgcn|<an LM arch>
         [--cell CELL] [--smoke | --no-smoke] [--steps N] [--ckpt-dir DIR]
         [--ckpt-every N] [--seed S] [--device cuda|cpu]
+        [--mesh none|debug|single-pod|multi-pod]
 
 Builds the arch's train cell (``--cell``, by default its first: a recsys
 arch's ``train_batch``, 65,536 rows a step, an LM's ``train_4k``, 256 x
@@ -18,8 +19,24 @@ from a generator seeded with ``seed + 1 + i``, so a resumed run sees the
 batches the unbroken one would; ``--steps`` is the run's total, resumed
 steps included.  Prints the parameter count, the reference's
 ``optimizer=fused-adafactor`` (it prints that for every train cell), and
-the first and last loss.  ``--mesh`` is refused: it is ``ROADMAP.md``'s
-"Training on a mesh".
+the first and last loss.
+
+``--mesh`` trains the LM archs and ``gatedgcn`` on a process mesh, one
+process a rank, under ``torchrun``::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch deepseek-7b --mesh debug \
+        --device cpu
+
+``debug`` is (1, world) over ("data", "model"); ``single-pod`` /
+``multi-pod`` are (16, 16) / (2, 16, 16) and need a world of 256 / 512.
+``--device cpu`` means gloo, ``cuda`` NCCL with rank r on card
+``LOCAL_RANK``; there is no fallback from one to the other.  Every rank
+draws the whole weights and each batch from the seeded generators and
+keeps its shard (``launch.steps.place_params`` / ``place_inputs``), so a
+meshed run sees the unmeshed run's weights and batches; rank 0 prints.
+Recsys archs are refused under ``--mesh`` (their tables' row shards under
+the ``sigbag`` kernel are ``ROADMAP.md``'s "recsys on a mesh").
 """
 
 from __future__ import annotations
@@ -30,8 +47,11 @@ import torch
 
 from repro_torch.configs import cells_for, get_arch, get_cell
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps
 from repro_torch.launch.steps import build_cell, init_inputs
+from repro_torch.sharding.rules import set_mesh
 from repro_torch.train import TrainState, Trainer
+from repro_torch.tree import tree_leaves
 
 
 def _train_cell_name(arch_id: str) -> str:
@@ -64,12 +84,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _mesh(ap, args, dev):
+    """The process mesh ``--mesh`` names (None for "none")."""
+    from repro_torch.launch.mesh import make_process_mesh, make_production_mesh
+    if args.mesh == "none":
+        return None
+    if get_arch(args.arch).family == "recsys":
+        ap.error(f"--mesh {args.mesh} for {args.arch}: recsys on a mesh is "
+                 "not ported (its tables' row shards under the sigbag "
+                 "kernel): ROADMAP.md queue 1, \"recsys on a mesh\"")
+    try:
+        if args.mesh == "debug":
+            return make_process_mesh(None, ("data", "model"), device=dev)
+        return make_production_mesh(multi_pod=args.mesh == "multi-pod",
+                                    device=dev)
+    except ValueError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
+
+
 def main(argv=None) -> TrainState:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh} is not ported: ROADMAP.md queue 1, "
-                 "\"Training on a mesh\"")
     try:
         get_arch(args.arch)
         cell = args.cell or _train_cell_name(args.arch)
@@ -77,38 +112,57 @@ def main(argv=None) -> TrainState:
     except KeyError as e:
         ap.error(e.args[0])
     dev = resolve_device(args.device)
+    mesh = _mesh(ap, args, dev)
+    if mesh is not None:
+        dev = mesh.device
     prog = build_cell(args.arch, cell, smoke=args.smoke, device=dev)
     if "train" not in prog.kind:
         ap.error(f"cell {cell!r} of {args.arch} is {prog.kind}, not a train "
                  "cell")
-    model = prog.init_params(torch.Generator(device=dev).manual_seed(args.seed))
-    params = model.params()
-    n = sum(p.numel() for p in model.parameters())
-    print(f"{args.arch}/{cell}: {n:,} params, optimizer=fused-adafactor")
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    with set_mesh(mesh):
+        model = prog.init_params(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        params = model.params()
+        if mesh is None:
+            opt_state = prog.optimizer.init(params)
+        else:
+            params = steps.place_params(prog, params, mesh)
+            model = None          # every rank keeps its shards only
+            opt_state = steps.init_opt_state(prog, params)
+        n = sum(p.numel() for p in tree_leaves(params))
+        say(f"{args.arch}/{cell}: {n:,} params, optimizer=fused-adafactor")
 
-    def step(state, batch):
-        p, o, loss = prog.step(model, state.params, state.opt_state, batch)
-        return (TrainState(params=p, opt_state=o, step=state.step + 1),
-                {"loss": loss})
+        def step(state, batch):
+            if mesh is not None:
+                batch = steps.place_inputs(prog, batch)
+            p, o, loss = prog.step(model, state.params, state.opt_state,
+                                   batch)
+            return (TrainState(params=p, opt_state=o, step=state.step + 1),
+                    {"loss": loss})
 
-    state = TrainState(params=params, opt_state=prog.optimizer.init(params),
-                       step=torch.zeros((), dtype=torch.int32, device=dev))
-    tr = Trainer(step, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    state = tr.maybe_resume(state)
-    done = int(state.step)
+        state = TrainState(params=params, opt_state=opt_state,
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+        tr = Trainer(step, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+        state = tr.maybe_resume(state)
+        done = int(state.step)
 
-    def batches():
-        return (init_inputs(prog, torch.Generator(device=dev).manual_seed(
-            args.seed + 1 + i)) for i in range(args.steps))
+        def batches():
+            return (init_inputs(prog, torch.Generator(device=dev).manual_seed(
+                args.seed + 1 + i)) for i in range(args.steps))
 
-    state = tr.fit(state, batches, args.steps, start_step=done)
+        state = tr.fit(state, batches, args.steps, start_step=done)
     losses = [m["loss"] for m in tr.metrics_log]
     if losses:
-        print(f"loss: first={losses[0]:.4f} last={losses[-1]:.4f} "
-              f"({len(losses)} steps from step {done}, "
-              f"{tr.heartbeat.stragglers} stragglers)")
+        say(f"loss: first={losses[0]:.4f} last={losses[-1]:.4f} "
+            f"({len(losses)} steps from step {done}, "
+            f"{tr.heartbeat.stragglers} stragglers)")
     return state
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

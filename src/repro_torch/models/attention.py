@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.sharding import spmd
 
 NEG_INF = -1e30
 
@@ -185,25 +186,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def mla_prefill(x: torch.Tensor, p: dict, *, n_heads: int, d_nope: int,
                 d_rope: int, d_v: int, positions: torch.Tensor,
-                rope_theta: float, blk: int = 1024) -> torch.Tensor:
+                rope_theta: float, blk: int = 1024,
+                shards: Optional[spmd.Shards] = None,
+                ents=spmd.WHOLE) -> torch.Tensor:
     """MLA forward for prefill (decompressed K/V).
 
     Params p: wdq (d, q_lora), wuq (q_lora, H*(d_nope+d_rope)),
     wdkv (d, kv_lora), wukv (kv_lora, H*(d_nope+d_v)), wkr (d, d_rope),
     q_norm (q_lora,), kv_norm (kv_lora,), wo (H*d_v, d).
+
+    On a process mesh (``shards``, ``ents`` the leaves' per-dim axes) ``p``
+    holds the rank's shards and ``x`` its rows: a latent's down-projection
+    column-parallel over "model" and gathered whole before its norm, the
+    heads split over "model" where they divide (``wuq`` / ``wukv``
+    column-parallel, ``wo`` row-parallel, one psum), the shared rope key
+    whole on every rank.
     """
+    sh = shards or spmd.Shards()
+    e = ents
     B, S, _ = x.shape
-    H = n_heads
-    cq = rms_norm(x @ p["wdq"], p["q_norm"])
-    q = (cq @ p["wuq"]).reshape(B, S, H, d_nope + d_rope)
+    split = (sh.heads_split(n_heads, e["wuq"], e["wo"])
+             and sh.heads_split(n_heads, e["wukv"], e["wo"]))
+    H = n_heads // sh.tp if split else n_heads
+    mt = ("model",) if split else ()
+
+    def latent(wd, norm, wu):
+        c, c_split = sh.col(x, p[wd], e[wd])
+        if c_split:                    # the latent whole before its norm
+            c = spmd.gather(c, -1, sh.mesh, ("model",))
+        c = spmd.enter(rms_norm(c, sh.use(p[norm], e[norm])), sh.mesh, mt)
+        return c @ sh.use(p[wu], e[wu], mt)
+
+    q = latent("wdq", "q_norm", "wuq").reshape(B, S, H, d_nope + d_rope)
     q_rope = apply_rope(q[..., d_nope:], positions, rope_theta)
-    ckv = rms_norm(x @ p["wdkv"], p["kv_norm"])
-    kv = (ckv @ p["wukv"]).reshape(B, S, H, d_nope + d_v)
-    k_rope = apply_rope((x @ p["wkr"])[:, :, None, :], positions, rope_theta)
+    kv = latent("wdkv", "kv_norm", "wukv").reshape(B, S, H, d_nope + d_v)
+    kr, kr_split = sh.col(x, p["wkr"], e["wkr"])
+    if kr_split:
+        kr = spmd.gather(kr, -1, sh.mesh, ("model",),
+                         "sum" if split else "slice")
+    elif split:
+        kr = spmd.enter(kr, sh.mesh, ("model",))
+    k_rope = apply_rope(kr[:, :, None, :], positions, rope_theta)
     qc = torch.cat([q[..., :d_nope], q_rope], dim=-1)
     kc = torch.cat([kv[..., :d_nope], k_rope.expand(B, S, H, d_rope)], dim=-1)
     out = blockwise_attention(qc, kc, kv[..., d_nope:], blk_q=blk, blk_kv=blk)
-    return out.reshape(B, S, H * d_v) @ p["wo"]
+    out = out.reshape(B, S, H * d_v) @ sh.use(p["wo"], e["wo"], mt)
+    return spmd.psum(out, sh.mesh, mt)
 
 
 def mla_decode(x: torch.Tensor, p: dict, ckv_cache: torch.Tensor,

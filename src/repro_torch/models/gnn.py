@@ -19,9 +19,18 @@ graph) and subgraphs from the fanout sampler ``neighbor_sample``.  Edges
 are padded to a fixed count with a validity mask, as the reference pads
 them.  Parameters keep the reference's tree (``embed_in``, ``embed_edge``,
 ``layers`` with each leaf stacked along axis 0, ``out``); ``GNNModel``
-holds it.  The reference's ``constrain`` calls are the mesh path's
-sharding hints and are left out; ``ROADMAP.md`` queue 1, "The multi-GPU
-mesh path", brings them back.
+holds it.
+
+On a process mesh, ``gnn_loss`` / ``gnn_forward`` take a shard context
+(``sharding.spmd.Shards``) and run the same body on each rank's local
+shards, following the reference's ``constrain`` layout: edge tensors
+(``e``, ``src``, ``dst``, the mask) split over every mesh axis
+(``Shards.edges``), node tensors over the batch axes (``Shards.rows``)
+and replicated over "model", the parameters replicated.  A layer gathers
+``h`` whole for its edges' gathers, sums its edges' ``segment_sum``
+partials across the ranks before ``take(gate_sum, dst)``, and
+reduce-scatters the messages' partial sums onto each rank's node rows.
+Without a mesh every collective is the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models.layers import TreeModel, normal_init, rms_norm
+from repro_torch.sharding import spmd
 from repro_torch.tree import tree_map
 
 
@@ -89,38 +99,62 @@ def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 def gatedgcn_layer(p: Dict, h: torch.Tensor, e: torch.Tensor,
                    src: torch.Tensor, dst: torch.Tensor,
-                   edge_mask: torch.Tensor, n_nodes: int
+                   edge_mask: torch.Tensor, n_nodes: int,
+                   shards: Optional[spmd.Shards] = None, ents=spmd.WHOLE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One GatedGCN layer. h: (N, d); e: (E, d); src / dst: (E,) int32."""
-    h_src = h.index_select(0, src)
-    h_dst = h.index_select(0, dst)
-    e_new = h_dst @ p["A"] + h_src @ p["B"] + e @ p["C"]       # (E, d)
+    """One GatedGCN layer. h: (N, d); e: (E, d); src / dst: (E,) int32.
+    On a process mesh (``shards``): ``h`` the rank's node rows, ``e`` /
+    ``src`` / ``dst`` / ``edge_mask`` its edges, ``n_nodes`` the global
+    count, ``ents`` the weights' per-dim axes."""
+    sh = shards or spmd.Shards()
+    mesh, rows, eaxes = sh.mesh, sh.rows, sh.edges
+    use = lambda n, split: sh.use(p[n], ents[n], split=split)
+    reps = tuple(a for a in eaxes if a not in rows)
+    h_all = spmd.gather(spmd.enter(h, mesh, reps), 0, mesh, rows, "sum")
+    h_src = h_all.index_select(0, src)
+    h_dst = h_all.index_select(0, dst)
+    e_new = (h_dst @ use("A", eaxes) + h_src @ use("B", eaxes)
+             + e @ use("C", eaxes))                              # (E, d)
     gate = torch.sigmoid(e_new) * edge_mask[:, None]
-    gate_sum = _segment_sum(gate, dst, n_nodes)
+    # every rank's partial sums added before any rank reads its edges'
+    gate_sum = spmd.enter(spmd.psum(_segment_sum(gate, dst, n_nodes), mesh,
+                                    eaxes), mesh, eaxes)
     eta = gate / (gate_sum.index_select(0, dst) + 1e-6)         # (E, d)
-    msg = eta * (h_src @ p["V"]) * edge_mask[:, None]
-    agg = _segment_sum(msg, dst, n_nodes)                       # (N, d)
-    h = h + torch.relu(rms_norm(h @ p["U"] + agg, p["ln_h"]))
-    e = e + torch.relu(rms_norm(e_new, p["ln_e"]))
+    msg = eta * (h_src @ use("V", eaxes)) * edge_mask[:, None]
+    agg = spmd.psum(spmd.reduce_scatter(_segment_sum(msg, dst, n_nodes), 0,
+                                        mesh, rows), mesh, reps)  # (N, d)
+    h = h + torch.relu(rms_norm(h @ use("U", rows) + agg, use("ln_h", rows)))
+    e = e + torch.relu(rms_norm(e_new, use("ln_e", eaxes)))
     return h, e
 
 
-def gnn_forward(params: Dict, batch: Dict, cfg: GNNConfig) -> torch.Tensor:
+def gnn_forward(params: Dict, batch: Dict, cfg: GNNConfig,
+                shards: Optional[spmd.Shards] = None,
+                ents=spmd.WHOLE) -> torch.Tensor:
     """batch: node_feats (N, d_in), edge_index (2, E) int32, edge_mask (E,)
     float, [node_mask (N,), graph_ids (N,), labels].  Returns logits
     (N, classes), or (graphs, classes) with the graph readout.  With
     ``cfg.remat`` each layer's activations are recomputed in the backward
-    instead of kept, as the reference's ``jax.checkpoint`` does."""
-    h = batch["node_feats"] @ params["embed_in"]
+    instead of kept, as the reference's ``jax.checkpoint`` does.  On a
+    process mesh (``shards``): ``params`` the rank's (replicated) leaves,
+    ``ents`` their per-dim axes, ``batch`` its shards -- node rows (and
+    graph ids, node mask) over ``shards.rows``, edges over
+    ``shards.edges``, graph labels whole; node logits are the rank's
+    rows, graph logits whole."""
+    sh = shards or spmd.Shards()
+    rows = sh.rows
+    use = lambda n, split: sh.use(params[n], ents[n], split=split)
+    h = batch["node_feats"] @ use("embed_in", rows)
     E = batch["edge_index"].shape[1]
-    e = params["embed_edge"].expand(E, cfg.d_hidden)
+    e = use("embed_edge", sh.edges).expand(E, cfg.d_hidden)
     src, dst = batch["edge_index"][0], batch["edge_index"][1]
     edge_mask = batch["edge_mask"].to(h.dtype)
-    n_nodes = h.shape[0]
-    stack = params["layers"]
+    n_nodes = h.shape[0] * sh.extent(rows)
+    stack, lents = params["layers"], tree_map(lambda t: t[1:],
+                                              ents["layers"])
     for i in range(cfg.n_layers):
         args = (tree_map(lambda t: t[i], stack), h, e, src, dst, edge_mask,
-                n_nodes)
+                n_nodes, sh, lents)
         if cfg.remat and torch.is_grad_enabled():
             h, e = torch.utils.checkpoint.checkpoint(
                 gatedgcn_layer, *args, use_reentrant=False)
@@ -131,21 +165,28 @@ def gnn_forward(params: Dict, batch: Dict, cfg: GNNConfig) -> torch.Tensor:
         gids = batch["graph_ids"]
         n_graphs = batch["labels"].shape[0]
         nm = batch["node_mask"].to(h.dtype)
-        sums = _segment_sum(h * nm[:, None], gids, n_graphs)
-        cnt = _segment_sum(nm, gids, n_graphs)
-        h = sums / torch.clamp(cnt, min=1.0)[:, None]
-    return h @ params["out"]
+        sums = spmd.psum(_segment_sum(h * nm[:, None], gids, n_graphs),
+                         sh.mesh, rows)
+        cnt = spmd.psum(_segment_sum(nm, gids, n_graphs), sh.mesh, rows)
+        return (sums / torch.clamp(cnt, min=1.0)[:, None]) @ use("out", ())
+    return h @ use("out", rows)
 
 
-def gnn_loss(params: Dict, batch: Dict, cfg: GNNConfig) -> torch.Tensor:
-    """Cross-entropy: masked node classification, or per-graph readout."""
-    logits = gnn_forward(params, batch, cfg).float()
+def gnn_loss(params: Dict, batch: Dict, cfg: GNNConfig,
+             shards: Optional[spmd.Shards] = None,
+             ents=spmd.WHOLE) -> torch.Tensor:
+    """Cross-entropy: masked node classification, or per-graph readout
+    (on a process mesh, ``gnn_forward``'s arguments; the loss, on every
+    rank)."""
+    sh = shards or spmd.Shards()
+    logits = gnn_forward(params, batch, cfg, sh, ents).float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, batch["labels"].long()[:, None])[:, 0]
     if cfg.readout == "graph":
         return nll.mean()
     mask = batch["node_mask"].float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return spmd.psum((nll * mask).sum(), sh.mesh, sh.rows) / torch.clamp(
+        spmd.psum(mask.sum(), sh.mesh, sh.rows), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ dict (``model.params()`` by default): training differentiates that tree
 (``torch.autograd.grad``), with the model supplying the config, the
 coefficients and the frontend's two calls.  The reference's
 ``sharding.rules.constrain`` calls are no-ops without a mesh and are left
-out (``ROADMAP.md`` queue 1, "Training on a mesh").
+out: recsys training on a mesh, with its tables' row shards, is
+``ROADMAP.md`` queue 1's "recsys on a mesh".
 """
 
 from __future__ import annotations
@@ -212,6 +213,20 @@ def init_recsys_params(cfg: RecsysConfig,
             (cfg.minhash_k, 1 << cfg.minhash_b, d), 0.01)
         a1, a2 = minhash_coeffs(generator, cfg.minhash_k)
     return RecsysModel(cfg, p, a1, a2)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes only."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def recsys_param_shapes(cfg: RecsysConfig) -> Dict:
+    """The parameter tree on the meta device: shapes and types, nothing
+    allocated (the reference's ``recsys_param_shapes``)."""
+    return init_recsys_params(cfg, _MetaGenerator()).params()
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,22 @@ MoE arch), each layer leaf stacked along axis 0 as the reference's
 holds the tree as frozen parameters; the functions take the tree
 (``model.params()``).  Serving runs them under ``torch.inference_mode``;
 training differentiates ``train_loss`` with respect to a tree of leaves
-that require a gradient.  The reference's ``constrain`` calls are no-ops
-without a mesh and are left out.
+that require a gradient.
+
+On a process mesh, ``forward`` / ``train_loss`` take a shard context
+(``sharding.spmd.Shards``) and each leaf's per-dim axes
+(``sharding.params.lm_param_specs``) and run the same body on each rank's
+local shards, with explicit collectives: FSDP weights gathered just in
+time over "data", column-parallel (``wq`` ... ``w_up``) and row-parallel
+(``wo``, ``w_down``) products over "model" with one psum a block, the
+embedding table gathered over "data", the output head vocab-parallel over
+"model" (the loss's log-sum-exp summed across the vocab shards), and the
+MoE FFN expert-parallel (``moe._moe_ep_local``).  The reference's
+``constrain`` points are explicit there: the layer boundary keeps d_model
+split over "model" (the remat stash), gathered at the layer's start.
+Heads split over "model" where they divide; an indivisible axis is
+dropped, as ``constrain`` drops it, and the block then runs whole on
+every rank.  Without a mesh every collective is the identity.
 """
 
 from __future__ import annotations
@@ -41,7 +55,9 @@ from repro_torch.models.attention import (blockwise_attention,
                                           mla_prefill)
 from repro_torch.models.layers import (TreeModel, apply_rope, normal_init,
                                        rms_norm, swiglu)
-from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
+from repro_torch.models.moe import (MoEConfig, init_moe_params, moe_ffn,
+                                   swiglu_tp)
+from repro_torch.sharding import spmd
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -230,30 +246,64 @@ def _layer_window(cfg: TransformerConfig, idx: int) -> int:
     return 0 if is_global else cfg.local_window
 
 
-def _attn_block(p: Dict, x: torch.Tensor, cfg: TransformerConfig,
-                positions: torch.Tensor, window: int) -> torch.Tensor:
+def _kv(sh: spmd.Shards, x, w, ent, cfg: TransformerConfig,
+        heads_split: bool) -> torch.Tensor:
+    """K or V for the rank's query heads: (B, S, n_kv here, hd).  Where
+    the query heads split over "model" and the kv heads do not divide
+    there, each rank selects the kv heads its query heads read."""
+    B, S = x.shape[:2]
+    n_kv, hd = cfg.n_kv, cfg.head_dim
+    if not heads_split:
+        return (x @ sh.use(w, ent)).reshape(B, S, n_kv, hd)
+    if n_kv % sh.tp == 0 and sh.model_split(ent):
+        return sh.col(x, w, ent)[0].reshape(B, S, n_kv // sh.tp, hd)
+    G = cfg.n_heads // n_kv
+    h_loc = cfg.n_heads // sh.tp
+    j = sh.index("model")
+    full = spmd.enter(x @ sh.use(w, ent), sh.mesh, ("model",))
+    full = full.reshape(B, S, n_kv, hd)
+    if h_loc >= G and h_loc % G == 0:
+        return full[:, :, j * h_loc // G:(j + 1) * h_loc // G]
+    if G % h_loc == 0:
+        kv = j * h_loc // G
+        return full[:, :, kv:kv + 1]
+    raise ValueError(f"{cfg.n_heads} query heads over {sh.tp} ranks do not "
+                     f"group onto {n_kv} kv heads")
+
+
+def _attn_block(sh: spmd.Shards, p: Dict, e, x: torch.Tensor,
+                cfg: TransformerConfig, positions: torch.Tensor,
+                window: int) -> torch.Tensor:
     B, S, _ = x.shape
     if cfg.attention == "mla":         # MLA takes no window
         return mla_prefill(x, p, n_heads=cfg.n_heads, d_nope=cfg.qk_nope,
                            d_rope=cfg.qk_rope, d_v=cfg.v_head,
                            positions=positions, rope_theta=cfg.rope_theta,
-                           blk=cfg.attn_blk)
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv, cfg.head_dim)
+                           blk=cfg.attn_blk, shards=sh, ents=e)
+    # the reference constrains q, k, v to ("batch", None, "model"): heads
+    # over "model" where they divide
+    split = sh.heads_split(cfg.n_heads, e["wq"], e["wo"])
+    mt = ("model",) if split else ()
+    H = cfg.n_heads // sh.tp if split else cfg.n_heads
+    q = (sh.col(x, p["wq"], e["wq"])[0] if split
+         else x @ sh.use(p["wq"], e["wq"])).reshape(B, S, H, cfg.head_dim)
+    k = _kv(sh, x, p["wk"], e["wk"], cfg, split)
+    v = _kv(sh, x, p["wv"], e["wv"], cfg, split)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = blockwise_attention(q, k, v, window=window, blk_q=cfg.attn_blk,
                               blk_kv=cfg.attn_blk)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = out.reshape(B, S, H * cfg.head_dim) @ sh.use(p["wo"], e["wo"], mt)
+    return spmd.psum(out, sh.mesh, mt)
 
 
-def _ffn_block(p: Dict, x: torch.Tensor, cfg: TransformerConfig,
-               moe_layer: bool) -> torch.Tensor:
+def _ffn_block(sh: spmd.Shards, p: Dict, e, x: torch.Tensor,
+               cfg: TransformerConfig, moe_layer: bool) -> torch.Tensor:
     B, S, D = x.shape
     if moe_layer:
-        return moe_ffn(p, x.reshape(B * S, D), cfg.moe).reshape(B, S, D)
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return moe_ffn(p, x.reshape(B * S, D), cfg.moe, shards=sh,
+                       ents=e).reshape(B, S, D)
+    return swiglu_tp(x, p, e, sh)
 
 
 def _recomputed(fn: Callable, *args):
@@ -265,66 +315,113 @@ def _recomputed(fn: Callable, *args):
     return fn(*args)
 
 
-def _layer_fn(x: torch.Tensor, p: Dict, cfg: TransformerConfig,
-              positions: torch.Tensor, window: int,
+def _d_split(sh: spmd.Shards, cfg: TransformerConfig) -> Tuple[str, ...]:
+    """The axes the layer boundary splits d_model over: "model" where it
+    divides (the reference's constrain of the remat stash), else none."""
+    return ("model",) if sh.tp > 1 and cfg.d_model % sh.tp == 0 else ()
+
+
+def _layer_fn(x: torch.Tensor, p: Dict, e, sh: spmd.Shards,
+              cfg: TransformerConfig, positions: torch.Tensor, window: int,
               moe_layer: bool) -> torch.Tensor:
-    x = x + _attn_block(p["attn"], rms_norm(x, p["ln1"]), cfg, positions,
-                        window)
-    return x + _ffn_block(p["ffn"], rms_norm(x, p["ln2"]), cfg, moe_layer)
+    """One layer; x (B, S, D) split along D as ``_d_split`` says, gathered
+    whole here and split again at the end."""
+    m = _d_split(sh, cfg)
+    x = spmd.gather(x, -1, sh.mesh, m)
+    x = x + _attn_block(sh, p["attn"], e["attn"],
+                        rms_norm(x, sh.use(p["ln1"], e["ln1"])), cfg,
+                        positions, window)
+    x = x + _ffn_block(sh, p["ffn"], e["ffn"],
+                       rms_norm(x, sh.use(p["ln2"], e["ln2"])), cfg,
+                       moe_layer)
+    return spmd.scatter(x, -1, sh.mesh, m)
 
 
-def forward(params: Dict, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            shards: Optional[spmd.Shards] = None,
+            ents=spmd.WHOLE) -> torch.Tensor:
     """tokens (B, S) -> final hidden states (B, S, D): the dense-FFN
     layers, then the rest, each ``x + attn(norm(x))``, ``x +
-    ffn(norm(x))``, each recomputed in the backward with ``cfg.remat``."""
+    ffn(norm(x))``, each recomputed in the backward with ``cfg.remat``.
+
+    On a process mesh (``shards``; ``params`` the rank's shards of the
+    stacked tree or its ``per_layer`` form, ``ents`` each stacked leaf's
+    per-dim axes, ``tokens`` the rank's rows) the weights' FSDP shards are
+    gathered just in time, the products column- and row-parallel over
+    "model" and the MoE FFN expert-parallel."""
+    sh = shards or spmd.Shards()
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    x = params["embed"][tokens.long()]
+    # the table gathered over "data" (FSDP); the lookup output
+    # unconstrained on d, as the reference leaves it
+    x = sh.use(params["embed"], ents["embed"])[tokens.long()]
+    m = _d_split(sh, cfg)
+    x = spmd.scatter(x, -1, sh.mesh, m)
     for key, n, moe_layer, first in _stacks(cfg):
+        e = tree_map(lambda t: t[1:], ents[key])     # without the layer dim
         for i in range(n):
-            args = (x, _layer(params[key], i), cfg, positions,
+            args = (x, _layer(params[key], i), e, sh, cfg, positions,
                     _layer_window(cfg, first + i), moe_layer)
             x = _recomputed(_layer_fn, *args) if cfg.remat else _layer_fn(
                 *args)
-    return rms_norm(x, params["final_norm"])
+    x = spmd.gather(x, -1, sh.mesh, m)
+    return rms_norm(x, sh.use(params["final_norm"], ents["final_norm"]))
 
 
-def _chunk_ce(x: torch.Tensor, w_out: torch.Tensor,
-              labels: torch.Tensor) -> torch.Tensor:
-    """Summed cross-entropy of one (B, chunk) slice, its logits float32."""
+def _chunk_ce(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
+              mesh, vocab: Tuple[str, ...], lo: int) -> torch.Tensor:
+    """Summed cross-entropy of one (B, chunk) slice, its logits float32;
+    with the head's columns split over ``vocab`` (from column ``lo``), the
+    log-sum-exp and the label's logit summed across the shards."""
     logits = (x @ w_out).float()
-    m = logits.amax(-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-    correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (lse - correct).sum()
+    m = spmd.pmax(logits.amax(-1, keepdim=True), mesh, vocab)
+    lse = torch.log(spmd.psum(torch.exp(logits - m).sum(-1), mesh, vocab)
+                    ) + m[..., 0]
+    local = labels.long() - lo
+    V = logits.shape[-1]
+    mine = (local >= 0) & (local < V)
+    correct = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None]
+                           )[..., 0] * mine
+    return (lse - spmd.psum(correct, mesh, vocab)).sum()
 
 
 def chunked_ce_loss(x: torch.Tensor, w_out: torch.Tensor,
-                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int,
+                    shards: Optional[spmd.Shards] = None,
+                    ent=spmd.WHOLE) -> torch.Tensor:
     """Mean next-token cross-entropy of x (B, S, D) through ``w_out`` (D,
     V) against labels (B, S), ``chunk`` positions at a time: each (B,
     chunk, V) float32 logits slice is made, reduced and dropped, and made
-    again in the backward."""
+    again in the backward.  On a process mesh (``shards``, ``ent`` the
+    head's per-dim axes) the head is vocab-parallel over "model" where its
+    columns are split there, and the mean is over every rank's rows."""
+    sh = shards or spmd.Shards()
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"loss chunk {chunk}")
+    vocab = ("model",) if sh.model_split(ent) else ()
+    xt = spmd.enter(x, sh.mesh, vocab)
+    w = sh.use(w_out, ent, vocab)
+    lo = sh.index(vocab) * w.shape[-1]
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + _recomputed(_chunk_ce, x[:, sl], w_out,
-                                    labels[:, sl])
-    return total / (B * S)
+        total = total + _recomputed(_chunk_ce, xt[:, sl], w, labels[:, sl],
+                                    sh.mesh, vocab, lo)
+    return spmd.psum(total / (B * sh.extent(sh.rows) * S), sh.mesh, sh.rows)
 
 
-def train_loss(params: Dict, batch: Dict,
-               cfg: TransformerConfig) -> torch.Tensor:
+def train_loss(params: Dict, batch: Dict, cfg: TransformerConfig,
+               shards: Optional[spmd.Shards] = None,
+               ents=spmd.WHOLE) -> torch.Tensor:
     """batch: {"tokens": (B, S) int32, "labels": (B, S) int32} -> the
-    0-d float32 mean loss."""
-    x = forward(params, batch["tokens"], cfg)
-    return chunked_ce_loss(x, params["out"], batch["labels"], cfg.ce_chunk)
+    0-d float32 mean loss (on a process mesh: ``forward``'s arguments,
+    ``batch`` the rank's rows; the global mean, on every rank)."""
+    x = forward(params, batch["tokens"], cfg, shards, ents)
+    return chunked_ce_loss(x, params["out"], batch["labels"], cfg.ce_chunk,
+                           shards, ents["out"])
 
 
 # ---------------------------------------------------------------------------

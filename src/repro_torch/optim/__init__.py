@@ -1,8 +1,7 @@
 """Optimizers (port of ``repro.optim``): the functional ``Optimizer``
 pair, its transforms, learning-rate schedules, SGD, AdamW, Adafactor and
-the fused Adafactor that recsys training runs.
-
-``compression.py`` comes with training on a mesh (ROADMAP queue 1)."""
+the fused Adafactor that recsys training runs, and (``compression``) the
+int8 and top-k gradient compression of a data-parallel all-reduce."""
 
 from repro_torch.optim.base import (Optimizer, add_decayed_weights,
                                     apply_updates, chain, clip_by_global_norm,

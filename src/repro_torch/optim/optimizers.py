@@ -22,6 +22,14 @@ over the chunks), and ``inplace`` writes the new parameters and state over
 the old: together they fit an LM's step on one card.  Both keep the
 reference's arithmetic in its order (``eps`` added to g^2,
 ``max(mean(vr), eps)``).
+
+On a process mesh ``adafactor_fused``'s ``update`` takes ``shards=(ents,
+mesh)``, each leaf's per-dim mesh axes (a tree of the parameters' shape):
+its leaves are then local shards, and every mean the update takes over a
+dim that an axis shards -- the factored statistics, ``mean(vr)`` and the
+RMS of the clip -- is summed across that axis's ranks (shards are equal,
+so the mean of the shards' means).  AdamW is elementwise and runs on
+shards as it is.
 """
 
 from __future__ import annotations
@@ -107,20 +115,71 @@ def _adafactor_state(params, momentum, momentum_dtype):
     return state
 
 
-def _statistics(g32, vr, vc, beta2, eps):
+class _Whole:
+    """Means over whole (unsharded) dims."""
+
+    def mean(self, t, dim, param_dim, keepdim=False):
+        return t.mean(dim, keepdim=keepdim)
+
+    def mean_all(self, t):
+        return torch.mean(t)
+
+    def sum_all_(self, t):
+        return t
+
+    def numel(self, n: int) -> int:
+        return n
+
+
+class _Sharded(_Whole):
+    """Means over dims of a local shard: each summed across the ranks of
+    the axes sharding the parameter's dim (``axes``: per parameter dim,
+    counted from the last)."""
+
+    def __init__(self, mesh, axes):
+        from repro_torch.sharding import spmd
+        self.spmd, self.mesh, self.axes = spmd, mesh, list(axes)
+        self.all = tuple(a for ax in self.axes for a in (ax or ()))
+
+    def mean(self, t, dim, param_dim, keepdim=False):
+        return self.spmd.pmean_(t.mean(dim, keepdim=keepdim), self.mesh,
+                                self.axes[param_dim] or ())
+
+    def mean_all(self, t):
+        return self.spmd.pmean_(torch.mean(t), self.mesh, self.all)
+
+    def sum_all_(self, t):
+        return self.spmd.pmean_(t, self.mesh, self.all).mul_(
+            self.mesh.extent(self.all))
+
+    def numel(self, n: int) -> int:
+        return n * self.mesh.extent(self.all)
+
+    def slice(self) -> "_Sharded":
+        out = _Sharded.__new__(_Sharded)
+        out.spmd, out.mesh, out.axes = self.spmd, self.mesh, self.axes[1:]
+        out.all = tuple(a for ax in out.axes for a in (ax or ()))
+        return out
+
+
+_WHOLE = _Whole()
+
+
+def _statistics(g32, vr, vc, beta2, eps, red=_WHOLE):
     """One leaf, slice or chunk: the new second-moment statistics.  ``vr``
     is None for an unfactored leaf, whose ``v`` is passed as ``vc``."""
     g2 = torch.square(g32).add_(eps)
     if vr is not None:
-        return (beta2 * vr + (1 - beta2) * g2.mean(-1),
-                beta2 * vc + (1 - beta2) * g2.mean(-2))
+        return (beta2 * vr + (1 - beta2) * red.mean(g2, -1, -1),
+                beta2 * vc + (1 - beta2) * red.mean(g2, -2, -2))
     return None, beta2 * vc + (1 - beta2) * g2
 
 
-def _direction(g32, vr, vc, eps):
+def _direction(g32, vr, vc, eps, red=_WHOLE):
     """g / sqrt(v) from the new statistics, before the clip."""
     if vr is not None:
-        denom_r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+        denom_r = vr / torch.clamp(red.mean(vr, -1, -2, keepdim=True),
+                                   min=eps)
         denom = (torch.sqrt(denom_r)[..., None]
                  * torch.sqrt(vc)[..., None, :]).add_(eps)
     else:
@@ -133,11 +192,11 @@ def _clip(rms, clip_threshold):
     return torch.clamp(rms / clip_threshold, min=1.0)
 
 
-def _precondition(g32, vr, vc, beta2, eps, clip_threshold):
+def _precondition(g32, vr, vc, beta2, eps, clip_threshold, red=_WHOLE):
     """One leaf (or slice): the new statistics and the clipped direction."""
-    vr, vc = _statistics(g32, vr, vc, beta2, eps)
-    precond = _direction(g32, vr, vc, eps)
-    rms = torch.sqrt(torch.mean(torch.square(precond)) + 1e-30)
+    vr, vc = _statistics(g32, vr, vc, beta2, eps, red)
+    precond = _direction(g32, vr, vc, eps, red)
+    rms = torch.sqrt(red.mean_all(torch.square(precond)) + 1e-30)
     return vr, vc, precond.div_(_clip(rms, clip_threshold))
 
 
@@ -165,7 +224,7 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
     def init(params):
         return _adafactor_state(params, momentum, momentum_dtype)
 
-    def update_apply(grads, state, params):
+    def update_apply(grads, state, params, shards=None):
         count = state["count"] + 1
         beta2 = _beta2(count, decay)
         step = lr_fn(state["count"])
@@ -182,11 +241,12 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
             upd = precond.mul_(step)
             out_p.copy_(torch.sub(p.to(torch.float32), upd, out=upd))
 
-        def slice_update(g, p, vr, vc, m, out):
+        def slice_update(g, p, vr, vc, m, out, red):
             out_p, out_vr, out_vc, out_m = out
             if p.dim() < 3 or p.numel() <= UPDATE_CHUNK:
                 nvr, nvc, precond = _precondition(
-                    g.to(torch.float32), vr, vc, beta2, eps, clip_threshold)
+                    g.to(torch.float32), vr, vc, beta2, eps, clip_threshold,
+                    red)
                 if nvr is not None:
                     out_vr.copy_(nvr)
                 out_vc.copy_(nvc)
@@ -206,19 +266,20 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
             ssq = torch.zeros((), dtype=torch.float32, device=p.device)
             for sl in chunks:
                 g32 = g3[sl].to(torch.float32)
-                nvr, nvc = _statistics(g32, vr2[sl], vc2[sl], beta2, eps)
+                nvr, nvc = _statistics(g32, vr2[sl], vc2[sl], beta2, eps,
+                                       red)
                 ovr2[sl].copy_(nvr)
                 ovc2[sl].copy_(nvc)
-                ssq += torch.square(_direction(g32, nvr, nvc, eps)).sum()
-            clip = _clip(torch.sqrt(ssq / p.numel() + 1e-30),
-                         clip_threshold)
+                ssq += torch.square(_direction(g32, nvr, nvc, eps, red)).sum()
+            clip = _clip(torch.sqrt(red.sum_all_(ssq) / red.numel(p.numel())
+                                    + 1e-30), clip_threshold)
             for sl in chunks:
                 precond = _direction(g3[sl].to(torch.float32), ovr2[sl],
-                                     ovc2[sl], eps).div_(clip)
+                                     ovc2[sl], eps, red).div_(clip)
                 apply(p3[sl], precond, None if m3 is None else m3[sl],
                       op3[sl], None if om3 is None else om3[sl])
 
-        def leaf(g, p, v, m):
+        def leaf(g, p, v, m, red):
             vr, vc = v.get("vr"), v.get("vc", v.get("v"))
             outs = (p, vr, vc, m)
             if not inplace:
@@ -226,11 +287,12 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
                              for t in outs)
             if p.dim() >= 3 and p.shape[0] >= scan_min_leading:
                 pick = lambda t, i: None if t is None else t[i]
+                red_i = red.slice() if isinstance(red, _Sharded) else red
                 for i in range(p.shape[0]):
                     slice_update(g[i], p[i], vr[i], vc[i], pick(m, i),
-                                 [pick(t, i) for t in outs])
+                                 [pick(t, i) for t in outs], red_i)
             else:
-                slice_update(g, p, vr, vc, m, outs)
+                slice_update(g, p, vr, vc, m, outs, red)
             new_p, nvr, nvc, nm = outs
             return new_p, ({"vr": nvr, "vc": nvc} if "vr" in v
                            else {"v": nvc}), nm
@@ -239,8 +301,13 @@ def adafactor_fused(lr: LR, momentum: Optional[float] = None,
         flat_m = (tree_leaves(state["m"]) if momentum is not None
                   else [None] * len(flat_g))
         v_of = _leaf_states(params, state["v"])
-        outs = [leaf(g, p, v, m) for g, p, v, m in
-                zip(flat_g, tree_leaves(params), v_of, flat_m)]
+        if shards is None:
+            reds = [_WHOLE] * len(flat_g)
+        else:
+            ents, mesh = shards
+            reds = [_Sharded(mesh, e) for e in _leaf_states(params, ents)]
+        outs = [leaf(g, p, v, m, r) for g, p, v, m, r in
+                zip(flat_g, tree_leaves(params), v_of, flat_m, reds)]
         new_state = {"count": count,
                      "v": unflatten_like(params, [o[1] for o in outs])}
         if momentum is not None:

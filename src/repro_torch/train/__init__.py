@@ -1,6 +1,7 @@
 """Training: the generic loop with checkpoints and restarts
-(``trainer``, ``checkpoint``, ``fault``) and streaming online learning
-over signature chunks (``online``)."""
+(``trainer``, ``checkpoint``, ``fault``), a checkpoint moved onto another
+mesh (``elastic``) and streaming online learning over signature chunks
+(``online``)."""
 
 from repro_torch.train import checkpoint
 from repro_torch.train.fault import Heartbeat, RestartStats, run_with_restarts

@@ -10,7 +10,15 @@ Arrays are keyed by their tree paths (``repro_torch.tree``: ``params/w``,
 as uint16 and listed under ``bf16_keys``, as the reference stores it: a
 checkpoint written by either package restores in the other.  (``np.savez``
 stamps zip times, so the files are not byte-identical; the arrays are.)
-Resharded restore waits for training on a mesh (ROADMAP queue 1).
+
+On a process mesh a tree holds DTensors: ``save`` gathers each one whole
+(``full_tensor()``) on every rank, in leaf order, on the calling thread;
+rank 0 writes, then every rank meets at a barrier -- so a meshed save
+holds exactly the arrays an unmeshed save of the same state does, and
+loads in either package.  ``save_async`` gathers first and writes in its
+thread.  ``restore(..., shardings=)`` loads whole arrays and places each
+under its sharding (``rules.NamedSharding``): the elastic-rescale entry
+point (``train.elastic``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,23 @@ from repro_torch.tree import map_with_path, path_leaves, tree_map
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 
 
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _whole(tree):
+    """DTensor leaves gathered whole (every rank, leaf order)."""
+    return tree_map(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
+
+
+def _writer() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
@@ -46,7 +71,19 @@ def _bf16(leaf) -> bool:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
          extra_meta: Optional[dict] = None) -> str:
-    """Save a tree checkpoint. Returns the final directory path."""
+    """Save a tree checkpoint. Returns the final directory path.  A tree
+    with DTensor leaves is gathered whole on every rank; rank 0 writes and
+    all ranks meet at a barrier."""
+    from repro_torch.tree import tree_leaves
+    if any(_is_dtensor(x) for x in tree_leaves(tree)):
+        import torch.distributed as dist
+        whole = _whole(tree)
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if _writer():
+            final = save(ckpt_dir, step, whole, keep=keep,
+                         extra_meta=extra_meta)
+        dist.barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(ckpt_dir, f".tmp_{name}_{os.getpid()}")
@@ -74,8 +111,10 @@ def save_async(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3
     (bfloat16 leaves stay tensors on the host), so the training loop can go
     on updating its tensors in place."""
     host_tree = tree_map(lambda x: x.detach().cpu().clone()
-                         if isinstance(x, torch.Tensor) else np.asarray(x), tree)
-    t = threading.Thread(target=save, args=(ckpt_dir, step, host_tree),
+                         if isinstance(x, torch.Tensor) else np.asarray(x),
+                         _whole(tree))
+    t = threading.Thread(target=save if _writer() else (lambda *a, **k: None),
+                         args=(ckpt_dir, step, host_tree),
                          kwargs={"keep": keep}, daemon=True)
     t.start()
     return t
@@ -92,11 +131,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
-            ) -> tuple[Any, int]:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``template``: each leaf becomes a
     tensor of the saved dtype on the device of the template's leaf (the
-    CPU where the template's leaf is not a tensor)."""
+    CPU where the template's leaf is not a tensor).  With ``shardings``
+    (a tree of the template's structure of ``NamedSharding`` or None),
+    each whole array is placed under its sharding, a DTensor; a template
+    of DTensors and no ``shardings`` keeps each leaf's placements."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -104,6 +146,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     bf16_keys = meta.get("bf16_keys", {})
+    shard_of = (dict(path_leaves(shardings)) if shardings is not None
+                else {})
     with np.load(os.path.join(d, "arrays.npz")) as data:
         def load(key, leaf):
             arr = data[key]
@@ -111,10 +155,28 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
+            shd = shard_of.get(key)
+            if shd is None and _is_dtensor(leaf):
+                shd = _sharding_of(leaf)
+            if shd is not None:
+                return shd.place(t)
             dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
             return t.to(dev)
 
         return map_with_path(load, template), step
+
+
+def _sharding_of(leaf):
+    """The ``NamedSharding`` a DTensor leaf of the template is placed
+    under (its process mesh must be the current one)."""
+    from repro_torch.sharding.rules import (NamedSharding, PartitionSpec,
+                                            current_mesh, entries_of)
+    mesh = current_mesh()
+    if getattr(mesh, "device_mesh", None) is not leaf.device_mesh:
+        raise ValueError("restoring a DTensor leaf needs its process mesh "
+                         "current (set_mesh)")
+    return NamedSharding(mesh, PartitionSpec(*entries_of(
+        leaf.placements, mesh, leaf.dim())))
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:

@@ -2,7 +2,8 @@
 
 A tree is a dataclass instance (its fields, in declaration order), a dict
 (its keys, sorted), a list or a tuple, or None (no leaves); anything else
-is a leaf.  That is the order and the key naming of
+is a leaf, and so is a tuple whose type sets ``_tree_leaf`` (a
+``PartitionSpec``).  That is the order and the key naming of
 ``jax.tree_util.tree_flatten_with_path`` for the reference's registered
 dataclasses, dicts and sequences, so ``path_leaves`` names a leaf by the
 same "/"-joined path in both packages (``params/w``, ``opt_state/m/w``):
@@ -17,6 +18,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 def _children(tree) -> Optional[List[Tuple[Any, Any]]]:
     """(key, child) pairs of a container, or None for a leaf."""
+    if getattr(tree, "_tree_leaf", False):
+        return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [(f.name, getattr(tree, f.name))
                 for f in dataclasses.fields(tree)]

@@ -296,14 +296,11 @@ def test_train_launcher_other_cells(cell, capsys):
 
 
 def test_gatedgcn_refusals(capsys):
-    """What stays refused: no serving cell, no mesh path, no such cell."""
+    """What stays refused: no serving cell, no such cell (``--mesh`` is
+    ported: ``test_torch_mesh_launch.py``)."""
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", "gatedgcn", "--device", "cpu"])
     assert "the GNN family has no serving cell" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        t_train.main(["--arch", "gatedgcn", "--mesh", "debug", "--device",
-                      "cpu"])
-    assert "Training on a mesh" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "gatedgcn", "--cell", "train_batch",
                       "--device", "cpu"])

@@ -41,7 +41,8 @@ required = ["repro_torch." + m for m in (
     "configs.deepseek_7b", "configs.yi_34b", "configs.mistral_large_123b",
     "configs.llama4_scout", "configs.deepseek_v3_671b", "models.gnn",
     "configs.gatedgcn", "roofline.analysis", "roofline.hardware",
-    "launch.mesh", "sharding.rules")]
+    "launch.mesh", "sharding.rules", "sharding.params", "sharding.spmd",
+    "optim.compression", "train.elastic")]
 for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab

@@ -296,7 +296,7 @@ def test_train_launcher_resumes(tmp_path, capsys):
 def test_train_launcher_refuses_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "din", "--mesh", "debug", "--device", "cpu"])
-    assert "Training on a mesh" in capsys.readouterr().err
+    assert "recsys on a mesh is not ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "graphsage", "--device", "cpu"])
     assert "not in the port" in capsys.readouterr().err

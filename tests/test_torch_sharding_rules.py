@@ -6,9 +6,11 @@
     "model") (2, 2, 2): logical names, tuples, "all" and absent axes;
   * ``data_axis_devices`` and ``place_shards`` pick the reference's
     positions (round-robin, tail-stable) on 1-D, 2-D and 3-D meshes;
-  * ``make_debug_mesh`` / ``make_production_mesh`` validate as the
-    reference does; ``constrain`` / ``named_sharding`` raise (training on
-    a mesh is not ported).
+  * ``make_debug_mesh`` validates as the reference does;
+    ``make_production_mesh`` (a process mesh since training on a mesh)
+    refuses a world that is not 256 / 512 ranks; without a mesh
+    ``constrain`` returns ``x`` and ``named_sharding`` None, as the
+    reference's do.
 
 The JAX meshes are built from the forced host devices; the port's from
 labelled CPU positions (``torch.device("cpu", i)``: the rules never make
@@ -152,9 +154,9 @@ def test_make_debug_mesh_validates():
         with pytest.raises(ValueError, match="have 0"):
             make_debug_mesh(1, axes=("data",))       # no CUDA device here
         with pytest.raises(ValueError, match="needs 256 devices"):
-            make_production_mesh()
+            make_production_mesh(device="cpu")
         with pytest.raises(ValueError, match="needs 512 devices"):
-            make_production_mesh(multi_pod=True)
+            make_production_mesh(multi_pod=True, device="cpu")
     with pytest.raises(ValueError, match="axis names"):
         Mesh(np.array([cpu, cpu], dtype=object), ("data", "model"))
     one = np.empty((1, 1), dtype=object)
@@ -164,13 +166,16 @@ def test_make_debug_mesh_validates():
 
 
 def test_production_mesh_shapes_need_their_devices(monkeypatch):
-    """The reference's (16, 16) and (2, 16, 16) shapes, refused with fewer
-    devices (the CUDA count faked; a torch device index has 8 bits, so
-    one process never addresses 256 cards)."""
+    """The reference's (16, 16) and (2, 16, 16) shapes are process meshes
+    (one rank a card), refused in a world of another size (the world of
+    ``torchrun``'s environment, faked here: 100 ranks); the retrieval
+    mesh still lays 8 positions on the CUDA devices (their count faked)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 100)
-    with pytest.raises(ValueError, match=r"\(16, 16\) needs 256 devices, "
-                                         r"asked for 256, have 100"):
+    monkeypatch.setenv("WORLD_SIZE", "100")
+    with pytest.raises(ValueError, match=r"\(16, 16\) needs 256 devices "
+                                         r"\(one rank each\), the world "
+                                         r"has 100"):
         make_production_mesh()
     with pytest.raises(ValueError, match=r"\(2, 16, 16\) needs 512"):
         make_production_mesh(multi_pod=True)
@@ -182,8 +187,19 @@ def test_production_mesh_shapes_need_their_devices(monkeypatch):
 
 
 def test_layout_binding_is_not_ported():
+    """Without a mesh ``constrain`` returns ``x`` itself and
+    ``named_sharding`` None, as the reference's do
+    (``tests/test_sharding_moe.py``); under the retrieval mesh, whose
+    positions are not ranks, ``constrain`` binds nothing either and
+    ``named_sharding`` names the reference's spec."""
     x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="training on a mesh"):
-        rules.constrain(x, "batch")
-    with pytest.raises(NotImplementedError, match="training on a mesh"):
-        rules.named_sharding("batch")
+    assert rules.constrain(x, "batch") is x
+    assert rules.named_sharding("batch") is None
+    y = x.numpy()
+    assert jrules.constrain(y, "batch") is y
+    m = make_debug_mesh(4, axes=("data", "model"), shape=(2, 2),
+                        devices=_labels(4))
+    with rules.set_mesh(m):
+        assert rules.constrain(x, "batch") is x
+        assert tuple(rules.named_sharding("batch", None).spec) == (
+            "data", None)
