@@ -77,10 +77,24 @@ group of this process alone, world 1): deepseek-7b and llama4-scout
 GatedGCN ``minibatch_lg``, meshed beside unmeshed on the same weights and
 batches, float32 gradients and the MoE layer at published widths held to
 the unmeshed path, and ``torchrun ... launch.train --mesh debug`` with one
-rank a card; no kernel of ours there either.  Scratch data goes to
-``build/smoke/`` and is removed at the end.  It
-exits non-zero, with no result line, when there is no CUDA device, when
-it is not run from a checkout, or when any check fails.
+rank a card; no kernel of ours there either.  Phase 15 trains the recsys
+family on a process mesh: the row-shard ``sigbag`` launch
+(``sigbag_shard_launch``, the one ``sigbag_cuda`` makes) at every shard
+of 1, 2, 4 and 8 of the published 2^b = 256 rows, bit-exact against its
+plain version, its plan against ``staged_plan``, the partials summed
+against the whole launch (bit for bit on a table of multiples of 2^-12),
+the whole-table entry ``sigbag_launch`` against and timed beside it at
+row0 = 0, a shard of 4 timed beside its bound and ``F.embedding_bag``;
+``minhash2u`` on a rank's rows of AutoInt's sets against the whole
+launch; the four archs' ``train_batch`` at published widths on a (1, 1)
+NCCL mesh beside unmeshed (float32 loss and every gradient bit for bit,
+launches counted, the host time of both paths under ``cProfile``);
+``torchrun ... launch.train --arch wide-deep --no-smoke --mesh debug``,
+and at the same config a meshed run resumed from its checkpoint against
+the unbroken one.  Scratch data
+goes to ``build/smoke/`` and is removed at the end.  It exits non-zero,
+with no result line, when there is no CUDA device, when it is not run
+from a checkout, or when any check fails.
 
 Output: one line per phase and kernel, the card's name and power limit,
 a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -406,6 +420,27 @@ MESH_CLI_STEPS = 4
 # _moe_ffn_dense at a capacity that drops nothing: the same products and
 # one more sum order, ~1e-7 relative expected
 MOE_EP_TOKENS, MOE_EP_REL = 4_096, 1e-5
+
+# Recsys training on a process mesh (phase 15): the row-shard sigbag at M
+# shards of the published 2^b = 256 signature rows (k = 64), at a request's
+# and at AutoInt's train_batch rows; minhash2u on a rank's B / D rows of
+# AutoInt's train_batch sets; then the four archs' train_batch at their
+# published widths on a (1, 1) NCCL mesh beside unmeshed (world 1: the
+# row-shard launch at row0 = 0 and identity collectives), and the launcher
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_ROWS = (512, 65_536)
+SHARD_DIMS = (16, 32)
+# a normal-init table: the M partial bags summed against the whole
+# launch, relative L2 (the float32 sums in another order)
+SHARD_REL = 1e-6
+FRONTEND_SPLITS = (2, 4)
+RECSYS_MESH_CLI_STEPS = 4
+# the resume at the published config: 3 steps unbroken (checkpoints at
+# step 2 and at the end), 1 resumed from step 2 (one at the end); a
+# checkpoint of Wide & Deep is 5.6 GB, ~7 s to write
+RECSYS_RESUME_STEPS = 3
+# functions named in a host profile's line, by the self time they gained
+HOST_TOP = 8
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -1176,6 +1211,10 @@ def run(torch) -> int:
 
     # -- phase 14: training on a process mesh (no kernel of ours) ---------
     mesh_training(torch, dev)
+
+    # -- phase 15: recsys training on a process mesh ----------------------
+    for name, n_launch in recsys_mesh(torch, dev, rows["sigbag"]).items():
+        rows[name]["launches"] += n_launch
     log(smi)               # the card beside the numbers at the output's end
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
@@ -1587,8 +1626,8 @@ def plain_frontend_model():
                                         s=self.cfg.minhash_s,
                                         b=self.cfg.minhash_b)
 
-        def signature_bag(self, sig, table):
-            return sigbag_plain(sig, table)
+        def signature_bag(self, sig, table, row0=0):
+            return sigbag_plain(sig, table, row0)
 
     return PlainFrontend
 
@@ -3640,6 +3679,202 @@ def lm_training(torch, dev) -> None:
         for a, r in summary.items()))
 
 
+def mesh_profile(torch, fn) -> tuple:
+    """(wall ms, kernel launches, their summed device ms, collectives:
+    NCCL's kernels) of one call of ``fn`` under the profiler (device
+    activity only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev
+                   if e.device_type == DeviceType.CUDA)
+    busy = sum(e.self_device_time_total for e in ev
+               if e.device_type == DeviceType.CUDA) / 1e3
+    coll = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+               and "nccl" in e.key.lower())
+    return wall, launches, busy, coll
+
+
+def code_key(fn) -> str:
+    """The ``host_profile`` key of a Python function."""
+    code = fn.__code__
+    return f"{Path(code.co_filename).name}:{code.co_firstlineno}" \
+           f"({code.co_name})"
+
+
+def _code_area(path: str) -> str:
+    """Where a profiled function's code lives: the port's package
+    directory, DTensor, the rest of torch, builtins or other."""
+    if path == "~":
+        return "builtins"
+    if "/repro_torch/" in path:
+        sub = path.rsplit("/repro_torch/", 1)[1].split("/")
+        return "/".join(["repro_torch"] + sub[:-1])
+    if "/distributed/tensor/" in path:
+        return "DTensor"
+    return "torch" if "/torch/" in path else "other"
+
+
+def host_profile(torch, fn, reps: int) -> dict:
+    """``reps`` synchronized calls of ``fn`` under ``cProfile`` (this
+    thread's Python calls, and the builtins they make; the autograd
+    engine's own threads are not seen, but ``backward()`` blocks this
+    thread for them): {"wall": ms a call, "areas": {area: self ms a call}
+    (``_code_area``), key: (self ms, cumulative ms, calls) a call}, each
+    function keyed as ``code_key`` keys it.  Self times are this
+    thread's own work; a cumulative time also holds its waits for the
+    device."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    prof.disable()
+    out = {"wall": (time.perf_counter() - t0) * 1e3 / reps, "areas": {}}
+    for (path, line, name), (_, calls, tt, ct, _) in \
+            pstats.Stats(prof).stats.items():
+        key = name if path == "~" else f"{Path(path).name}:{line}({name})"
+        out[key] = (tt * 1e3 / reps, ct * 1e3 / reps, calls / reps)
+        area = _code_area(path)
+        out["areas"][area] = out["areas"].get(area, 0.0) + tt * 1e3 / reps
+    return out
+
+
+def mesh_steps(torch, dev, mesh, prog, batches, meshed, seed,
+               host: int = 0) -> dict:
+    """Weights from ``seed``, one untimed step, ``MESH_TIMED`` timed steps
+    (each synchronized: its ms on the host clock and the process's CPU
+    ms), then one profiled step, unmeshed or on ``mesh``, and with
+    ``host`` that many steps under ``host_profile``.  Returns a dict of
+    the numbers; meshed, also the host ms of the mesh step's own work
+    (``place_inputs``; the leaves' axes, local shards and DTensor
+    rewrapping).  A recsys step on the mesh gets the model without its
+    weights (``RecsysModel.without_weights``)."""
+    import math
+
+    from repro_torch.launch import steps as st
+    from repro_torch.sharding.rules import entries_of, set_mesh
+    from repro_torch.tree import tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = prog.init_params(torch.Generator(device=dev).manual_seed(seed))
+    params = model.params()
+    if meshed:
+        with set_mesh(mesh):
+            params = st.place_params(prog, params, mesh)
+            state = st.init_opt_state(prog, params)
+    else:
+        state = prog.optimizer.init(params)
+    shell = model.without_weights() if prog.family == "recsys" else None
+
+    def step(params, state, batch):
+        if not meshed:
+            return prog.step(model, params, state, batch)
+        with set_mesh(mesh):
+            return prog.step(shell, params, state,
+                             st.place_inputs(prog, batch))
+
+    params, state, loss = step(params, state, batches[0])
+    losses, walls, cpus = [float(loss)], [], []
+    for b in batches[1:MESH_TIMED + 1]:
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        params, state, loss = step(params, state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        cpus.append((time.process_time() - c0) * 1e3)
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{prog.arch_id} meshed={meshed}: {losses}")
+    out = {"losses": losses, "ms": sum(walls) / len(walls),
+           "walls": walls, "cpus": cpus,
+           "peak": torch.cuda.max_memory_allocated()}
+    out["profile"] = mesh_profile(torch, lambda: step(params, state,
+                                                      batches[-1]))
+    if host:
+        out["host"] = host_profile(torch, lambda: step(params, state,
+                                                       batches[-1]), host)
+    if meshed:
+        with set_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.place_inputs(prog, batches[1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
+                     params)
+            for tree in (params, state):
+                st._rewrap(tree, tree_map(lambda t: t.to_local(), tree))
+            t2 = time.perf_counter()
+        out["wrapper"] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    del model, shell, params, state
+    return out
+
+
+def mesh_report(tag, what, unit, per_step, plain, meshed) -> None:
+    """The lines of one case timed meshed beside unmeshed."""
+    for name, r in (("unmeshed", plain), ("meshed", meshed)):
+        wall, launches, busy, coll = r["profile"]
+        extra = ""
+        if "wrapper" in r:
+            extra = (f"; the mesh step's own host work {r['wrapper'][0]:.2f}"
+                     f" ms place_inputs + {r['wrapper'][1]:.2f} ms axes, "
+                     f"local shards and rewrapping")
+        log(f"[{tag} {what}] {name}: losses "
+            + ", ".join(f"{x:.4f}" for x in r["losses"])
+            + f"; {r['ms']:.1f} ms a step ({per_step / r['ms'] * 1e3:,.0f}"
+            f" {unit}/s, world 1; {MESH_TIMED} steps, each synchronized: "
+            + " / ".join(f"{x:.1f}" for x in r["walls"])
+            + " ms, process CPU " + " / ".join(f"{x:.1f}" for x in r["cpus"])
+            + f" ms); max_memory_allocated {r['peak']:,} B; a profiled "
+            f"step: wall {wall:.1f} ms, "
+            f"{launches:,} launches ({busy:.1f} ms of kernels, "
+            f"{busy / wall:.0%} busy), {coll} collectives" + extra)
+    gap = abs(meshed["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    log(f"[{tag} {what}] step-0 loss meshed vs unmeshed: relative "
+        f"{gap:.2e}; meshed / unmeshed step time "
+        f"{meshed['ms'] / plain['ms']:.3f}")
+
+
+def host_report(what, plain, meshed) -> None:
+    """Phase 15's line of where a meshed step's host time goes beside the
+    unmeshed step's (``host_profile`` of each, ms a step): this thread's
+    self time in all and by where the code lives, the cumulative time of
+    the mesh step's own functions, and the functions whose self time grew
+    most."""
+    from repro_torch.launch import steps as st
+    own = [(fn.__name__, meshed.get(code_key(fn), (0.0, 0.0, 0))[1])
+           for fn in (st._ents, st._local, st._rewrap)]
+    areas = sorted(set(plain["areas"]) | set(meshed["areas"]))
+    gain = sorted(((meshed["areas"].get(a, 0.0) - plain["areas"].get(a, 0.0),
+                    a) for a in areas), reverse=True)
+    grew = sorted(((meshed[k][0] - plain.get(k, (0.0, 0, 0))[0], k,
+                    meshed[k][2]) for k in meshed
+                   if k not in ("wall", "areas")), reverse=True)[:HOST_TOP]
+    total = [sum(h["areas"].values()) for h in (meshed, plain)]
+    log(f"[recsys mesh {what}] host profile (cProfile, {MESH_TIMED} steps "
+        f"each, ms a step, meshed vs unmeshed): wall {meshed['wall']:.1f} vs "
+        f"{plain['wall']:.1f}; this thread's self time {total[0]:.2f} vs "
+        f"{total[1]:.2f} ({total[0] - total[1]:+.2f}), by where the code "
+        f"lives: " + ", ".join(f"{a} {d:+.2f}" for d, a in gain)
+        + "; the mesh step's own functions (cumulative): "
+        + ", ".join(f"{n} {t:.2f}" for n, t in own)
+        + "; self time grown most: "
+        + ", ".join(f"{k} {d:+.2f} ({c:.0f} calls)" for d, k, c in grew))
+
+
 def mesh_training(torch, dev) -> None:
     """Phase 14: training on a process mesh over NCCL.  In this process, a
     process group of one rank and a (1, 1) ("data", "model") mesh: the
@@ -3661,11 +3896,8 @@ def mesh_training(torch, dev) -> None:
     (``GNN_DET_REL``); then ``torchrun --nproc-per-node <cards> -m
     repro_torch.launch.train --arch deepseek-7b --mesh debug``."""
     import dataclasses
-    import math
 
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import InputSpec
@@ -3688,25 +3920,6 @@ def mesh_training(torch, dev) -> None:
         f"one rank a card, world {cards}), mesh {mesh.shape}: every number "
         f"in this phase is at world 1")
 
-    def counts(fn):
-        """(wall ms, kernel launches, their summed device ms, collectives:
-        NCCL's kernels) of one call of ``fn`` under the profiler (device
-        activity only)."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        ev = prof.key_averages()
-        launches = sum(e.count for e in ev
-                       if e.device_type == DeviceType.CUDA)
-        busy = sum(e.self_device_time_total for e in ev
-                   if e.device_type == DeviceType.CUDA) / 1e3
-        coll = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
-                   and "nccl" in e.key.lower())
-        return wall, launches, busy, coll
-
     def lm_cell(arch, depth, batch, seq, **changes):
         prog = st.build_cell(arch, "train_4k", smoke=False, device=dev)
         cfg = prog.config
@@ -3716,88 +3929,6 @@ def mesh_training(torch, dev) -> None:
                  for k in ("tokens", "labels")}
         return dataclasses.replace(prog, config=cfg, input_specs=specs)
 
-    def run_steps(prog, batches, meshed):
-        """Weights from the seed, one untimed step, ``MESH_TIMED`` timed
-        steps (each synchronized: its ms on the host clock and the
-        process's CPU ms), then one profiled step.  Returns a dict of
-        the numbers; meshed, also the
-        host ms of the mesh step's own work (``place_inputs``; the
-        leaves' axes, local shards and DTensor rewrapping)."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = prog.init_params(torch.Generator(device=dev).manual_seed(
-            SEED + 140))
-        params = model.params()
-        if meshed:
-            with set_mesh(mesh):
-                params = st.place_params(prog, params, mesh)
-                state = st.init_opt_state(prog, params)
-        else:
-            state = prog.optimizer.init(params)
-
-        def step(params, state, batch):
-            if not meshed:
-                return prog.step(model, params, state, batch)
-            with set_mesh(mesh):
-                return prog.step(None, params, state,
-                                 st.place_inputs(prog, batch))
-
-        params, state, loss = step(params, state, batches[0])
-        losses, walls, cpus = [float(loss)], [], []
-        for b in batches[1:MESH_TIMED + 1]:
-            torch.cuda.synchronize()
-            t0, c0 = time.perf_counter(), time.process_time()
-            params, state, loss = step(params, state, b)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            cpus.append((time.process_time() - c0) * 1e3)
-            losses.append(float(loss))
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{prog.arch_id} meshed={meshed}: {losses}")
-        out = {"losses": losses, "ms": sum(walls) / len(walls),
-               "walls": walls, "cpus": cpus,
-               "peak": torch.cuda.max_memory_allocated()}
-        out["profile"] = counts(lambda: step(params, state, batches[-1]))
-        if meshed:
-            with set_mesh(mesh):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st.place_inputs(prog, batches[1])
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
-                         params)
-                for tree in (params, state):
-                    st._rewrap(tree, tree_map(lambda t: t.to_local(), tree))
-                t2 = time.perf_counter()
-            out["wrapper"] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
-        del model, params, state
-        return out
-
-    def report(what, unit, per_step, plain, meshed):
-        for name, r in (("unmeshed", plain), ("meshed", meshed)):
-            wall, launches, busy, coll = r["profile"]
-            extra = ""
-            if "wrapper" in r:
-                extra = (f"; the mesh step's own host work {r['wrapper'][0]:.2f}"
-                         f" ms place_inputs + {r['wrapper'][1]:.2f} ms axes, "
-                         f"local shards and rewrapping")
-            log(f"[mesh train {what}] {name}: losses "
-                + ", ".join(f"{x:.4f}" for x in r["losses"])
-                + f"; {r['ms']:.1f} ms a step ({per_step / r['ms'] * 1e3:,.0f}"
-                f" {unit}/s, world 1; {MESH_TIMED} steps, each synchronized: "
-                + " / ".join(f"{x:.1f}" for x in r["walls"])
-                + " ms, process CPU " + " / ".join(f"{x:.1f}" for x in r["cpus"])
-                + f" ms); max_memory_allocated {r['peak']:,} B; a profiled "
-                f"step: wall {wall:.1f} ms, "
-                f"{launches:,} launches ({busy:.1f} ms of kernels, "
-                f"{busy / wall:.0%} busy), {coll} collectives" + extra)
-        gap = abs(meshed["losses"][0] - plain["losses"][0]) / abs(
-            plain["losses"][0])
-        log(f"[mesh train {what}] step-0 loss meshed vs unmeshed: relative "
-            f"{gap:.2e}; meshed / unmeshed step time "
-            f"{meshed['ms'] / plain['ms']:.3f}")
-
     summary = {}
     for arch, (depth, seq) in MESH_TRAIN_RUNS.items():
         t_arch = time.perf_counter()
@@ -3805,10 +3936,11 @@ def mesh_training(torch, dev) -> None:
         prog = lm_cell(arch, depth, m, seq)
         gen = torch.Generator(device=dev).manual_seed(SEED + 141)
         batches = [st.init_inputs(prog, gen) for _ in range(MESH_TIMED + 2)]
-        plain = run_steps(prog, batches, False)
-        meshed = run_steps(prog, batches, True)
-        report(f"{arch} {depth} layers, {m} x {seq:,}, {prog.config.param_dtype}",
-               "tokens", m * seq, plain, meshed)
+        plain = mesh_steps(torch, dev, mesh, prog, batches, False, SEED + 140)
+        meshed = mesh_steps(torch, dev, mesh, prog, batches, True, SEED + 140)
+        mesh_report("mesh train", f"{arch} {depth} layers, {m} x {seq:,}, "
+                    f"{prog.config.param_dtype}", "tokens", m * seq, plain,
+                    meshed)
         summary[arch] = (plain, meshed)
         log(f"[mesh train {arch}] {time.perf_counter() - t_arch:.1f} s")
 
@@ -3922,10 +4054,11 @@ def mesh_training(torch, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 144)
     batches = [st.init_inputs(prog, gen) for _ in range(MESH_TIMED + 2)]
     n_edges = int(batches[0]["edge_mask"].sum())
-    plain = run_steps(prog, batches, False)
-    meshed = run_steps(prog, batches, True)
-    report(f"gatedgcn minibatch_lg {batches[0]['node_feats'].shape[0]:,} "
-           f"nodes x {n_edges:,} edges", "edges", n_edges, plain, meshed)
+    plain = mesh_steps(torch, dev, mesh, prog, batches, False, SEED + 140)
+    meshed = mesh_steps(torch, dev, mesh, prog, batches, True, SEED + 140)
+    mesh_report("mesh train", f"gatedgcn minibatch_lg "
+                f"{batches[0]['node_feats'].shape[0]:,} nodes x {n_edges:,} "
+                f"edges", "edges", n_edges, plain, meshed)
     summary["gatedgcn"] = (plain, meshed)
     model = prog.init_params(torch.Generator(device=dev).manual_seed(
         SEED + 140))
@@ -3981,6 +4114,377 @@ def mesh_training(torch, dev) -> None:
         + "; ".join(f"{k}: {v[1]['ms']:.1f} ms a step meshed vs "
                     f"{v[0]['ms']:.1f} unmeshed, peak {v[1]['peak']:,} vs "
                     f"{v[0]['peak']:,} B" for k, v in summary.items()))
+
+
+def recsys_mesh(torch, dev, sigbag_row: dict) -> dict:
+    """Phase 15: recsys training on a process mesh over NCCL.  (a) The
+    row-shard ``sigbag`` launch (``sigbag_shard_launch``) at every shard
+    of M in ``SHARD_COUNTS`` of 2^b = 256 rows, k = 64, d in
+    ``SHARD_DIMS``, float32 and bfloat16, ``SHARD_ROWS`` rows with tokens
+    -1, 2^b and 2^31 - 1 mixed in: each shard bit-exact against its plain
+    version, its plan == ``staged_plan`` of the shard; on a table of
+    multiples of 2^-12 the M partials summed == the whole launch bit for
+    bit, on a normal one within ``SHARD_REL``; the shard at row0 = 0 timed
+    beside the whole launch, and a shard of 4 beside its bound and
+    ``F.embedding_bag`` over the local rows (written into ``sigbag_row``
+    as its ``row_shard``).  (b) ``minhash2u`` on rows [r B / D, (r + 1) B
+    / D) of AutoInt's ``train_batch`` sets == those rows of the whole
+    launch, D in ``FRONTEND_SPLITS``.  (c) The four archs' ``train_batch``
+    at published widths on a (1, 1) ("data", "model") mesh, world 1,
+    meshed beside unmeshed on the same weights and batches, timed as in
+    phase 14; the float32 loss and every gradient leaf meshed == unmeshed
+    bit for bit under deterministic algorithms.  (d) ``torchrun -m
+    repro_torch.launch.train --arch wide-deep --no-smoke --mesh debug``
+    with one rank a card, and in this process at the same config a meshed
+    run resumed from its step-2 checkpoint == the unbroken one.  Returns
+    the ``sigbag`` and ``minhash2u`` launches of the meshed steps."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels.sigbag import (sigbag_cuda, sigbag_plain,
+                                            sigbag_plan_cuda, staged_plan)
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import recsys
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import entries_of, set_mesh
+    from repro_torch.tree import path_leaves, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 150)
+    k, two_b = 64, 256
+
+    # -- (a) the row-shard sigbag ----------------------------------------
+    def tokens(n):
+        tok = torch.randint(0, two_b, (n, k), dtype=torch.int32,
+                            generator=gen, device=dev)
+        tok[0::97, 3], tok[1::89, 5], tok[2::83, 7] = -1, two_b, 2**31 - 1
+        return tok
+
+    def shards(m):
+        rows = two_b // m
+        return [(r * rows, rows) for r in range(m)]
+
+    def whole_entry(tok, tab):
+        """The whole-table C entry ``sigbag_launch``, kept beside the
+        row-shard entry that ``sigbag_cuda`` calls."""
+        out = torch.empty((tok.shape[0], tab.shape[2]), dtype=tab.dtype,
+                          device=dev)
+        build.check(build.library("sigbag").sigbag_launch(
+            tok.data_ptr(), tab.data_ptr(), tok.shape[0], k, tab.shape[1],
+            tab.shape[2], int(tab.dtype == torch.bfloat16), out.data_ptr(),
+            build.stream_handle(dev)), "sigbag_launch")
+        return out
+
+    n_cases, plans, rel_max = 0, {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in SHARD_DIMS:
+            normal = (torch.randn((k, two_b, d), generator=gen, device=dev)
+                      * 0.01).to(dtype)
+            dyadic = (torch.randint(-4096, 4097, (k, two_b, d), generator=gen,
+                                    device=dev).float() / 4096.0)
+            for n in SHARD_ROWS:
+                tok = tokens(n)
+                whole = sigbag_cuda(tok, normal)
+                if not torch.equal(whole_entry(tok, normal), whole):
+                    raise AssertionError(f"sigbag_launch d={d} n={n} "
+                                         f"{dtype} != the shard at row0 0")
+                if dtype == torch.float32:
+                    whole_dy = sigbag_cuda(tok, dyadic)
+                for m in SHARD_COUNTS:
+                    parts, parts_dy = [], []
+                    for row0, rows in shards(m):
+                        local = normal[:, row0:row0 + rows].contiguous()
+                        got = sigbag_cuda(tok, local, row0)
+                        if not torch.equal(got, sigbag_plain(tok, local,
+                                                             row0)):
+                            raise AssertionError(
+                                f"sigbag shard {row0}+{rows} d={d} n={n} "
+                                f"{dtype}: kernel != plain")
+                        plan, sms = sigbag_plan_cuda(tok, local)
+                        twin = staged_plan(n, rows, d, local.element_size(),
+                                           sms, local.data_ptr())
+                        if plan != twin:
+                            raise AssertionError(f"sigbag shard of {rows} "
+                                                 f"rows plans {plan}, "
+                                                 f"staged_plan {twin}")
+                        plans[(str(dtype)[6:], d, n, m)] = (
+                            f"staged {plan.stages}x{plan.rows}"
+                            if plan.staged else "direct")
+                        parts.append(got.float())
+                        n_cases += 1
+                        if dtype == torch.float32:
+                            loc = dyadic[:, row0:row0 + rows].contiguous()
+                            parts_dy.append(sigbag_cuda(tok, loc, row0))
+                    if dtype != torch.float32:
+                        continue
+                    if not torch.equal(torch.stack(parts_dy).sum(0),
+                                       whole_dy):
+                        raise AssertionError(f"sigbag {m} dyadic partials "
+                                             f"d={d} n={n} != the whole")
+                    rel = float((torch.stack(parts).sum(0) - whole).norm()
+                                / whole.norm())
+                    if not rel <= SHARD_REL:
+                        raise AssertionError(f"sigbag {m} partials d={d} "
+                                             f"n={n}: relative {rel:.2e}")
+                    rel_max = max(rel_max, rel)
+    log(f"[recsys mesh] sigbag_shard_launch: k={k}, M in {SHARD_COUNTS} "
+        f"shards of 2^b={two_b}, d in {SHARD_DIMS}, float32 and bfloat16, "
+        f"n in {SHARD_ROWS}, tokens -1, 2^b, 2^31 - 1 mixed in: every shard "
+        f"bit-exact against its plain version ({n_cases} shards), its plan "
+        f"== staged_plan; the whole-table entry sigbag_launch == the shard "
+        f"at row0 = 0; float32 partials summed == the whole launch bit "
+        f"for bit on a table of multiples of 2^-12, on a normal one at most "
+        f"{rel_max:.3e} relative (gate {SHARD_REL}). Plans (dtype, d, n, "
+        f"M): "
+        + ", ".join(f"{key} {v}" for key, v in sorted(plans.items())))
+
+    d, n = 16, TRAIN_ROWS                         # AutoInt's train_batch
+    table = torch.randn((k, two_b, d), generator=gen, device=dev) * 0.01
+    tok = tokens(n)
+    whole_fn = lambda: whole_entry(tok, table)
+    shard0_fn = lambda: sigbag_cuda(tok, table)
+    t_whole = [graph_ms(whole_fn, torch, SIGBAG_LOOP)]
+    t_shard0 = [graph_ms(shard0_fn, torch, SIGBAG_LOOP),
+                graph_ms(shard0_fn, torch, SIGBAG_LOOP)]
+    t_whole.append(graph_ms(whole_fn, torch, SIGBAG_LOOP))
+    m = 4
+    row0, rows = shards(m)[1]
+    local = table[:, row0:row0 + rows].contiguous()
+    shard_fn = lambda: sigbag_cuda(tok, local, row0)
+    ms = graph_ms(shard_fn, torch, SIGBAG_LOOP)
+    plain_ms = cuda_ms(lambda: sigbag_plain(tok, local, row0), torch)
+    tl = tok.to(torch.int64) - row0
+    inside = (tl >= 0) & (tl < rows)
+    flat = torch.where(inside, tl, 0) + torch.arange(k, device=dev) * rows
+    weight = local.reshape(k * rows, d)
+    mask = inside.float()
+    lib = lambda: F.embedding_bag(flat, weight, mode="sum",
+                                  per_sample_weights=mask)
+    if float((lib() - shard_fn()).abs().max()) > 1e-6:
+        raise AssertionError("F.embedding_bag over the shard's rows != the "
+                             "row-shard launch")
+    lib_ms = graph_ms(lib, torch, SIGBAG_LOOP)
+    touched = int(torch.unique(flat[inside]).numel())
+    b_ms, b_by = bound(4 * n * k + touched * d * 4 + n * d * 4, n * k * d)
+    plan, _ = sigbag_plan_cuda(tok, local)
+    log(f"[recsys mesh] sigbag at AutoInt's train_batch (n={n:,}, k={k}, "
+        f"2^b={two_b}, d={d}, float32; a CUDA graph of {SIGBAG_LOOP}, median "
+        f"of {REPS}): whole-table entry sigbag_launch {t_whole[0]:.4f} / "
+        f"{t_whole[1]:.4f} ms, sigbag_cuda (sigbag_shard_launch) at row0 = 0 "
+        f"{t_shard0[0]:.4f} / {t_shard0[1]:.4f} ms (whole, shard, shard, "
+        f"whole); shard 1 of "
+        f"{m} ({rows} rows from {row0}, "
+        f"{'staged' if plan.staged else 'direct'}): {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {touched} of {k * rows} rows touched), "
+        f"plain {plain_ms:.2f} ms, F.embedding_bag over the local rows "
+        f"{lib_ms:.4f} ms")
+    sigbag_row["row_shard"] = dict(
+        entry="sigbag_shard_launch", source=KERNEL_INFO["sigbag"][0],
+        check=(f"every shard of M in {list(SHARD_COUNTS)} bit-exact against "
+               f"sigbag_plain(tokens, shard, row0); dyadic partials summed "
+               f"== the whole launch; normal partials at most {rel_max:.3e} "
+               f"relative"), shards_checked=n_cases, partials_rel=rel_max,
+        launches=0,
+        shape=f"{n} x {k}, {rows} of {two_b} rows, d={d}, float32",
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, row0_0_ms=t_shard0, whole_ms=t_whole)
+    del table, tok, local, flat, weight, mask
+
+    # -- (b) minhash2u on a rank's rows -----------------------------------
+    aprog = st.build_cell("autoint", "train_batch", smoke=False, device=dev)
+    acfg = aprog.config
+    b = st.init_inputs(aprog, gen)
+    a1, a2 = recsys.minhash_coeffs(gen, acfg.minhash_k)
+    kw = dict(s=acfg.minhash_s, b=acfg.minhash_b)
+    ids, cnt = b["set_ids"], b["set_counts"].reshape(-1)
+    whole = kmin.minhash2u_cuda(ids, cnt, a1, a2, **kw)
+    B = ids.shape[0]
+    for D in FRONTEND_SPLITS:
+        for r in range(D):
+            lo, hi = r * B // D, (r + 1) * B // D
+            if not torch.equal(kmin.minhash2u_cuda(ids[lo:hi], cnt[lo:hi],
+                                                   a1, a2, **kw),
+                               whole[lo:hi]):
+                raise AssertionError(f"minhash2u rows {lo}:{hi} != the "
+                                     "whole launch's")
+    log(f"[recsys mesh] minhash2u on a rank's rows of AutoInt's train_batch "
+        f"sets ({B:,} x {ids.shape[1]}, k={acfg.minhash_k}): rows [r B / D, "
+        f"(r + 1) B / D) == the whole launch's, bit for bit, D in "
+        f"{FRONTEND_SPLITS}")
+    del b, ids, cnt, whole
+
+    # -- (c) the four archs' train_batch, meshed beside unmeshed -----------
+    mesh = make_process_mesh((1, 1), ("data", "model"), device="cuda")
+    log(f"[recsys mesh] process group: {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, mesh {mesh.shape}: every number below is "
+        f"at world 1 (one H100); worlds of 2-4 run on gloo in the CPU tests")
+    kern, mh = sigbag_cuda, kmin.minhash2u_cuda
+    launches = {"sigbag": 0, "minhash2u": 0}
+    summary = {}
+    for arch in FAMILY:
+        t_arch = time.perf_counter()
+        prog = st.build_cell(arch, "train_batch", smoke=False, device=dev)
+        cfg = prog.config
+        agen = torch.Generator(device=dev).manual_seed(SEED + 151)
+        batches = [st.init_inputs(prog, agen) for _ in range(MESH_TIMED + 2)]
+        plain = mesh_steps(torch, dev, mesh, prog, batches, False, SEED + 152,
+                           MESH_TIMED)
+        kern.launches = mh.launches = 0
+        meshed = mesh_steps(torch, dev, mesh, prog, batches, True, SEED + 152,
+                            MESH_TIMED)
+        got = {"sigbag": kern.launches, "minhash2u": mh.launches}
+        # an untimed, MESH_TIMED timed, one profiled and MESH_TIMED
+        # host-profiled steps
+        want = (2 * MESH_TIMED + 2) * cfg.use_minhash_frontend
+        if any(v != want for v in got.values()):
+            raise AssertionError(f"{arch} meshed: launches {got}, want "
+                                 f"{want} each")
+        for name, count in got.items():
+            launches[name] += count
+        mesh_report("recsys mesh", f"{arch} train_batch", "rows",
+                    TRAIN_ROWS, plain, meshed)
+        host_report(f"{arch} train_batch", plain["host"], meshed["host"])
+        summary[arch] = (plain, meshed)
+        # float32 loss and every gradient leaf, meshed == unmeshed
+        model = prog.init_params(torch.Generator(device=dev).manual_seed(
+            SEED + 153))
+        batch = batches[0]
+
+        def grads(fn, tree):
+            live = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+            loss = fn(live)
+            return float(loss), torch.autograd.grad(loss, tree_leaves(live))
+
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            l_plain, g_plain = grads(
+                lambda p: recsys.recsys_loss(model, batch, p), model.params())
+            with set_mesh(mesh):
+                placed = st.place_params(prog, model.params(), mesh)
+                ents = tree_map(lambda t: entries_of(t.placements, mesh,
+                                                     t.dim()), placed)
+                inputs = st.place_inputs(prog, batch)
+                sh = spmd.Shards(mesh, rows=entries_of(
+                    inputs["labels"].placements, mesh, 1)[0])
+                local_b = {key: v.to_local() for key, v in inputs.items()}
+                l_mesh, g_mesh = grads(
+                    lambda p: recsys.recsys_loss(model.without_weights(),
+                                                 local_b, p, sh, ents),
+                    tree_map(lambda t: t.to_local(), placed))
+        finally:
+            torch.use_deterministic_algorithms(was)
+        names = [key for key, _ in path_leaves(model.params())]
+        differ = [key for key, a, c in zip(names, g_plain, g_mesh)
+                  if not torch.equal(a, c)]
+        if l_mesh != l_plain or differ:
+            raise AssertionError(f"{arch} float32 meshed vs unmeshed: loss "
+                                 f"{l_mesh} vs {l_plain}, gradients differ "
+                                 f"in {differ}")
+        log(f"[recsys mesh {arch}] float32, {TRAIN_ROWS:,} rows, "
+            f"deterministic algorithms: meshed loss {l_mesh:.7f} == "
+            f"unmeshed, and all {len(names)} gradient leaves bit for bit "
+            f"({time.perf_counter() - t_arch:.1f} s)")
+        del model, placed, g_plain, g_mesh, batches, local_b, inputs
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # -- (d) the launcher -------------------------------------------------
+    # torchrun's run starts first and goes on beside the resume below (its
+    # ~30 s are mostly the new process's start; it prints no time)
+    cards = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    said_out, said_err = (open(SMOKE_DIR / f"cli.{x}", "w+")
+                          for x in ("out", "err"))
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(cards), "-m", "repro_torch.launch.train",
+         "--arch", "wide-deep", "--no-smoke", "--mesh", "debug", "--steps",
+         str(RECSYS_MESH_CLI_STEPS)], env=env, stdout=said_out,
+        stderr=said_err, text=True)
+
+    # the resume at the published config, in this process (deterministic
+    # algorithms, which the launcher has no option for)
+    straight, resumed = SMOKE_DIR / "mesh_straight", SMOKE_DIR / "mesh_resumed"
+    argv = ["--arch", "wide-deep", "--no-smoke", "--mesh", "debug",
+            "--steps", str(RECSYS_RESUME_STEPS), "--ckpt-every", "2",
+            "--seed", str(SEED)]
+    states, secs = [], []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for ckpt in (straight, resumed):
+            if ckpt == resumed:
+                resumed.mkdir(parents=True)
+                shutil.copytree(straight / "step_00000002",
+                                resumed / "step_00000002",
+                                copy_function=os.link)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                states.append(train_cli.main(
+                    argv + ["--ckpt-dir", str(ckpt)]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            dist.destroy_process_group()
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (straight / "step_00000002").iterdir())
+        rc = cli.wait(timeout=600)
+        cli_s = time.perf_counter() - t_cli
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(straight, ignore_errors=True)
+        shutil.rmtree(resumed, ignore_errors=True)
+    said_out.seek(0)
+    said_err.seek(0)
+    stdout, stderr = said_out.read(), said_err.read()
+    said_out.close()
+    said_err.close()
+    lines = [l for l in stdout.splitlines() if l.strip()]
+    if rc != 0 or not lines or not lines[-1].startswith("loss: first="):
+        raise AssertionError(f"torchrun train --arch wide-deep --mesh debug: "
+                             f"rc {rc}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    log(f"[recsys mesh CLI] python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {cards} -m repro_torch.launch.train --arch "
+        f"wide-deep --no-smoke --mesh debug --steps {RECSYS_MESH_CLI_STEPS} "
+        f"(NCCL, world {cards}): {' | '.join(lines)} ({cli_s:.1f} s, beside "
+        f"the resume below)")
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    pairs = list(zip(path_leaves(states[0]), path_leaves(states[1])))
+    last = said.getvalue().strip().splitlines()[-1]
+    if (not pairs or "from step 2" not in last
+            or not all(ka == kb and torch.equal(local(x), local(y))
+                       for (ka, x), (kb, y) in pairs)):
+        raise AssertionError(f"train --arch wide-deep --mesh debug: resumed "
+                             f"!= unbroken ({last})")
+    n_params = sum(local(t).numel() for t in tree_leaves(states[0].params))
+    del states, pairs
+    torch.cuda.empty_cache()
+    log(f"[recsys mesh CLI] --arch wide-deep --no-smoke --mesh debug "
+        f"--steps {RECSYS_RESUME_STEPS} --ckpt-every 2 (this process: "
+        f"NCCL, world 1; {n_params:,} params, a checkpoint of "
+        f"{ckpt_bytes:,} B) resumed from the unbroken run's step-2 "
+        f"checkpoint ({last}) == the unbroken run: the parameters and "
+        f"Adafactor state bit for bit (deterministic algorithms); unbroken "
+        f"{secs[0]:.1f} s (two checkpoints), resumed {secs[1]:.1f} s (a "
+        f"restore, one checkpoint), beside the torchrun run")
+    log(f"[recsys mesh] {time.perf_counter() - t_phase:.1f} s; world 1: "
+        + "; ".join(f"{a}: {v[1]['ms']:.1f} ms a step meshed vs "
+                    f"{v[0]['ms']:.1f} unmeshed, launches "
+                    f"{v[1]['profile'][1]:,} vs {v[0]['profile'][1]:,}, peak "
+                    f"{v[1]['peak']:,} vs {v[0]['peak']:,} B"
+                    for a, v in summary.items()))
+    sigbag_row["row_shard"]["launches"] = launches["sigbag"]
+    return launches
 
 
 def gnn_bound(hw, cfg, n: int, e: int) -> tuple:

@@ -9,7 +9,9 @@ parent commit, ``git archive HEAD~1 | tar -x -C build/parent``) at DIR:
 
 It builds ``src/repro_torch/csrc/oph.cu``, ``minhash.cu``,
 ``hamming.cu`` and ``sigbag.cu`` of both checkouts (their C interfaces
-must match) and calls each through THIS checkout's wrappers, swapping
+must match: ``sigbag_cuda`` calls ``sigbag_shard_launch``, which a
+checkout older than the row-shard entry lacks) and calls each through
+THIS checkout's wrappers, swapping
 the loaded library, in turns parent, change, change, parent, at the main
 paths' shapes:
 

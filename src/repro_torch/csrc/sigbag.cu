@@ -8,6 +8,15 @@
 // over the grid's sequential j axis; on Hopper the same function is a
 // gather-sum.
 //
+// A row shard (sigbag_shard_launch): the table holds rows [row0, row0 +
+// two_b) of the whole table's 2^b axis, and a token t adds local row
+// t - row0 when it lies in that range, nothing otherwise -- one unsigned
+// subtraction before the range compare below, (uint32)t - (uint32)row0 <
+// (uint32)two_b, exact for every int32 token and 0 <= row0 <= 2^31 - 1 -
+// two_b.  The sum of every shard's bag is the whole table's bag.  Both
+// designs plan from the local two_b, so a shard's smaller slot slices may
+// stage where the whole table's would not.  sigbag_launch is row0 = 0.
+//
 // Result, bit for bit: each output element is a float32 sum that starts
 // at +0 and adds slot j's value in the order j = 0, 1, ..., k-1 with plain
 // round-to-nearest adds (__fadd_rn, never contracted), cast once at the
@@ -265,6 +274,7 @@ struct Ring {
   uint32_t ph;              // its full-barrier parity
   int stages, stage_bytes;
   int two_b, k;
+  uint32_t row0;            // the shard's first row (0: the whole table)
   uint32_t full0, empty0, tfull0, tempty0;
   int lane;
   const unsigned char* tok;   // this thread's row of token stage 0
@@ -314,7 +324,8 @@ static __device__ __forceinline__ void consume(
     uint4 w[P][S::PPT];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const uint32_t u = t[p] < (uint32_t)g.two_b ? t[p] : (uint32_t)g.two_b;
+      const uint32_t tl = t[p] - g.row0;       // the shard's row
+      const uint32_t u = tl < (uint32_t)g.two_b ? tl : (uint32_t)g.two_b;
       const unsigned char* row = tab[p] + u * ROWB;   // else the zero row
 #pragma unroll
       for (int m = 0; m < S::PPT; ++m)
@@ -342,7 +353,7 @@ template <class D, int TPR>
 __global__ void __launch_bounds__(A_THREADS, 1)
 sigbag_staged(const int32_t* __restrict__ tokens,
               const typename D::T* __restrict__ table, int n, int k,
-              int two_b, int stages, int stage_bytes, int vec,
+              int two_b, int row0, int stages, int stage_bytes, int vec,
               typename D::T* __restrict__ out) {
   typedef Staged<D, TPR> S;
   constexpr int ROWB = TPR * 16;                // bytes of a table row
@@ -436,9 +447,9 @@ sigbag_staged(const int32_t* __restrict__ tokens,
   for (int i = 0; i < S::RT; ++i)
 #pragma unroll
     for (int v = 0; v < S::ACC; ++v) acc[i][v] = 0.0f;
-  Ring ring = {0, 0, stages, stage_bytes, two_b, k, full0, empty0, tfull0,
-               tempty0, lane, toks + rl0 * A_TROW, swz, tabs + piece0 * 16,
-               (piece1 - piece0) * 16};
+  Ring ring = {0, 0, stages, stage_bytes, two_b, k, (uint32_t)row0, full0,
+               empty0, tfull0, tempty0, lane, toks + rl0 * A_TROW, swz,
+               tabs + piece0 * 16, (piece1 - piece0) * 16};
   int j = 0;
   if (stages >= A_SPS)                           // a step's slots all staged
     for (; j + A_SPS <= k; j += A_SPS) consume<D, TPR, A_SPS>(acc, j, ring);
@@ -489,7 +500,8 @@ template <class D, int LB, int L>
 __global__ void __launch_bounds__(64)
 sigbag_direct(const int32_t* __restrict__ tokens,
               const typename D::T* __restrict__ table, int n, int k,
-              int two_b, int d, int vec, typename D::T* __restrict__ out) {
+              int two_b, int row0, int d, int vec,
+              typename D::T* __restrict__ out) {
   typedef typename Word<LB>::T W;
   constexpr int V = LB / sizeof(typename D::T);  // columns a lane
   constexpr int SB = B_SLOTS;                    // slots a batch
@@ -513,10 +525,12 @@ sigbag_direct(const int32_t* __restrict__ tokens,
 #pragma unroll
       for (int jj = 0; jj < SB; ++jj) {
         const int t = __shfl_sync(0xFFFFFFFFu, tk[jj % NT], jj / NT, L);
-        // t = -1 past k; the sum is never -0, so adding +0 leaves it
-        w[jj] = (live && (unsigned)t < (unsigned)two_b)
+        // the shard's row; t = -1 past k (never in range: row0 + two_b
+        // <= 2^31 - 1); the sum is never -0, so adding +0 leaves it
+        const uint32_t tl = (uint32_t)t - (uint32_t)row0;
+        w[jj] = (live && tl < (uint32_t)two_b)
                     ? __ldg(reinterpret_cast<const W*>(
-                          table + ((size_t)(j0 + jj) * two_b + t) * d + c))
+                          table + ((size_t)(j0 + jj) * two_b + tl) * d + c))
                     : W{};
       }
 #pragma unroll
@@ -579,14 +593,15 @@ static Plan make_plan(const void* table, int n, int two_b, int d, int bf16) {
 
 template <class D, int TPR>
 static int launch_staged(const Plan& p, const void* tokens, const void* table,
-                         int n, int k, int two_b, void* out, cudaStream_t st) {
+                         int n, int k, int two_b, int row0, void* out,
+                         cudaStream_t st) {
   auto kern = sigbag_staged<D, TPR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
   const int vec = k % 4 == 0 && (uintptr_t)tokens % 16 == 0;
   kern<<<(n + p.rows - 1) / p.rows, A_THREADS, p.smem, st>>>(
-      (const int32_t*)tokens, (const typename D::T*)table, n, k, two_b,
+      (const int32_t*)tokens, (const typename D::T*)table, n, k, two_b, row0,
       p.stages, p.stage_bytes, vec, (typename D::T*)out);
   return (int)cudaGetLastError();
 }
@@ -594,20 +609,23 @@ static int launch_staged(const Plan& p, const void* tokens, const void* table,
 template <class D>
 static int dispatch_staged(const Plan& p, const void* tokens,
                            const void* table, int n, int k, int two_b,
-                           void* out, cudaStream_t st) {
+                           int row0, void* out, cudaStream_t st) {
+#define SIGBAG_STAGED(TPR) \
+  launch_staged<D, TPR>(p, tokens, table, n, k, two_b, row0, out, st)
   switch (p.tpr) {
-    case 1: return launch_staged<D, 1>(p, tokens, table, n, k, two_b, out, st);
-    case 2: return launch_staged<D, 2>(p, tokens, table, n, k, two_b, out, st);
-    case 4: return launch_staged<D, 4>(p, tokens, table, n, k, two_b, out, st);
-    case 8: return launch_staged<D, 8>(p, tokens, table, n, k, two_b, out, st);
-    case 16: return launch_staged<D, 16>(p, tokens, table, n, k, two_b, out, st);
-    default: return launch_staged<D, 32>(p, tokens, table, n, k, two_b, out, st);
+    case 1: return SIGBAG_STAGED(1);
+    case 2: return SIGBAG_STAGED(2);
+    case 4: return SIGBAG_STAGED(4);
+    case 8: return SIGBAG_STAGED(8);
+    case 16: return SIGBAG_STAGED(16);
+    default: return SIGBAG_STAGED(32);
   }
+#undef SIGBAG_STAGED
 }
 
 template <class D, int LB, int L>
 static int launch_direct(int sms, const void* tokens, const void* table,
-                         int n, int k, int two_b, int d, void* out,
+                         int n, int k, int two_b, int row0, int d, void* out,
                          cudaStream_t st) {
   constexpr int NT = B_SLOTS / L;
   const long long warps = ((long long)n + 32 / L - 1) / (32 / L);
@@ -616,19 +634,19 @@ static int launch_direct(int sms, const void* tokens, const void* table,
   const int align = 4 * (NT < 4 ? NT : 4);
   const int vec = NT > 1 && k % NT == 0 && (uintptr_t)tokens % align == 0;
   sigbag_direct<D, LB, L><<<(unsigned)grid, 32 * per_block, 0, st>>>(
-      (const int32_t*)tokens, (const typename D::T*)table, n, k, two_b, d,
-      vec, (typename D::T*)out);
+      (const int32_t*)tokens, (const typename D::T*)table, n, k, two_b, row0,
+      d, vec, (typename D::T*)out);
   return (int)cudaGetLastError();
 }
 
 template <class D, int LB>
 static int dispatch_direct(int sms, const void* tokens, const void* table,
-                           int n, int k, int two_b, int d, void* out,
-                           cudaStream_t st) {
+                           int n, int k, int two_b, int row0, int d,
+                           void* out, cudaStream_t st) {
   const int cols = (d + LB / (int)sizeof(typename D::T) - 1) /
                    (LB / (int)sizeof(typename D::T));
 #define SIGBAG_DIRECT(L) \
-  launch_direct<D, LB, L>(sms, tokens, table, n, k, two_b, d, out, st)
+  launch_direct<D, LB, L>(sms, tokens, table, n, k, two_b, row0, d, out, st)
   if (cols <= 1) return SIGBAG_DIRECT(1);
   if (cols <= 2) return SIGBAG_DIRECT(2);
   if (cols <= 4) return SIGBAG_DIRECT(4);
@@ -659,17 +677,22 @@ extern "C" int sigbag_plan(const void* table, int n, int two_b, int d,
   return (int)cudaGetLastError();
 }
 
-// bf16 != 0: table and out hold bfloat16, else float32.
-extern "C" int sigbag_launch(const void* tokens, const void* table, int n,
-                             int k, int two_b, int d, int bf16, void* out,
-                             void* stream) {
+// The bag over a row shard: ``table`` (k, rows, d) holds rows [row0, row0 +
+// rows) of the whole table's 2^b axis (see the header).  bf16 != 0: table
+// and out hold bfloat16, else float32.
+extern "C" int sigbag_shard_launch(const void* tokens, const void* table,
+                                   int n, int k, int rows, int row0, int d,
+                                   int bf16, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Plan p = make_plan(table, n, two_b, d, bf16);
+  if (row0 < 0 || rows > 0x7FFFFFFF - row0) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(table, n, rows, d, bf16);
   if (p.staged)
-    return bf16 ? dispatch_staged<BF16>(p, tokens, table, n, k, two_b, out, st)
-                : dispatch_staged<F32>(p, tokens, table, n, k, two_b, out, st);
+    return bf16 ? dispatch_staged<BF16>(p, tokens, table, n, k, rows, row0,
+                                        out, st)
+                : dispatch_staged<F32>(p, tokens, table, n, k, rows, row0,
+                                       out, st);
 #define SIGBAG_DIRECT(D, LB) \
-  dispatch_direct<D, LB>(p.sms, tokens, table, n, k, two_b, d, out, st)
+  dispatch_direct<D, LB>(p.sms, tokens, table, n, k, rows, row0, d, out, st)
   switch (direct_bytes(table, d, bf16) * (bf16 ? -1 : 1)) {
     case 8: return SIGBAG_DIRECT(F32, 8);
     case 4: return SIGBAG_DIRECT(F32, 4);
@@ -677,4 +700,14 @@ extern "C" int sigbag_launch(const void* tokens, const void* table, int n,
     default: return SIGBAG_DIRECT(BF16, 2);
   }
 #undef SIGBAG_DIRECT
+}
+
+// The whole table: the row shard at row0 = 0 (the port's wrapper calls
+// sigbag_shard_launch; this entry keeps the C interface of checkouts
+// from before the row-shard entry).
+extern "C" int sigbag_launch(const void* tokens, const void* table, int n,
+                             int k, int two_b, int d, int bf16, void* out,
+                             void* stream) {
+  return sigbag_shard_launch(tokens, table, n, k, two_b, 0, d, bf16, out,
+                             stream);
 }

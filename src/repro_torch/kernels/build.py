@@ -56,6 +56,7 @@ SIGNATURES = {
     },
     "sigbag": {
         "sigbag_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "sigbag_shard_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
         "sigbag_plan": [_P, _I, _I, _I, _I, _P],
     },
 }

@@ -20,8 +20,10 @@ cell's kind as the reference's do:
   * ``lm_decode``:        ``step(model, inputs) -> ((B,) next tokens,
     cache)``, one greedy ``serve_step`` that writes ``inputs["cache"]`` in
     place at ``inputs["pos"] - 1`` and returns it;
-  * ``recsys_serve``:     ``step(model, inputs) -> (B,) scores``
-  * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,) logits``
+  * ``recsys_serve``:     ``step(model, inputs) -> (B,) scores``, or
+    ``step(model, params, inputs)`` with the parameters given apart;
+  * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,)
+    logits``, or ``step(model, params, inputs)``;
   * ``recsys_train``:     ``step(model, params, opt_state, inputs) ->
     (params, opt_state, loss)``, the fused Adafactor step on the
     reference's parameter dict, new tensors out;
@@ -50,9 +52,13 @@ microbatched LM batch laid out (m, B / m, S) first, so that microbatches
 group the *global* batch as the reference reshapes it); a train step
 given DTensor parameters then runs ``_mesh_step``: the same loss on the
 local shards with explicit collectives (``transformer.train_loss`` /
-``gnn.gnn_loss`` given a ``sharding.spmd.Shards``), the gradients left on
-the shards, the optimizer on the shards (Adafactor's means summed across
-the axes that shard them).
+``gnn.gnn_loss`` / ``recsys.recsys_loss`` given a ``sharding.spmd.Shards``),
+the gradients left on the shards, the optimizer on the shards
+(Adafactor's means summed across the axes that shard them).  A recsys
+step there takes a model that carries the config and the frontend's
+coefficients (``RecsysModel.without_weights()``); a recsys serving step
+given DTensor parameters runs the same body (``_mesh_serve``) and returns
+the scores as a DTensor of the rank's rows.
 """
 
 from __future__ import annotations
@@ -160,16 +166,18 @@ class CellProgram:
                 return tfm.serve_step(model.params(), inputs["cache"],
                                       inputs["tokens"], inputs["pos"],
                                       self.config)
-        if self.kind == "recsys_serve":
-            (inputs,) = args
-            return recsys_lib.serve_scores(model, inputs)
-        if self.kind == "recsys_retrieval":
-            (inputs,) = args
+        if self.kind in ("recsys_serve", "recsys_retrieval"):
+            *params, inputs = args
+            params = params[0] if params else None
+            if params is not None and _is_dtensor(tree_leaves(params)[0]):
+                return _mesh_serve(self, model, params, inputs)
+            if self.kind == "recsys_serve":
+                return recsys_lib.serve_scores(model, inputs, params)
             return recsys_lib.retrieval_scores(model, inputs,
-                                               self.n_candidates)
+                                               self.n_candidates, params)
         params, opt_state, inputs = args
         if _is_dtensor(tree_leaves(params)[0]):
-            return _mesh_step(self, params, opt_state, inputs)
+            return _mesh_step(self, model, params, opt_state, inputs)
         if self.kind == "lm_train":
             loss = lambda p, batch: tfm.train_loss(p, batch, self.config)
             split = tfm.per_layer
@@ -384,19 +392,62 @@ def _axes_of(t, mesh, dim: int) -> Tuple[str, ...]:
     return tuple(entries_of(t.placements, mesh, t.dim())[dim] or ())
 
 
-def _mesh_step(prog: "CellProgram", params, opt_state, inputs):
-    """The train step on a process mesh (see the module docstring)."""
+def _process_mesh():
     from repro_torch.launch.mesh import ProcessMesh
-    from repro_torch.optim.base import Optimizer
-    from repro_torch.sharding.rules import current_mesh, entries_of
+    from repro_torch.sharding.rules import current_mesh
     mesh = current_mesh()
     if not isinstance(mesh, ProcessMesh):
         raise ValueError("DTensor parameters need their process mesh "
                          "current (set_mesh)")
-    ents = tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
+    return mesh
+
+
+def _ents(params, mesh):
+    """Each DTensor leaf's per-dim axes."""
+    from repro_torch.sharding.rules import entries_of
+    return tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
                     params)
-    local = lambda tree: tree_map(lambda t: t.to_local() if _is_dtensor(t)
-                                  else t, tree)
+
+
+def _local(tree):
+    return tree_map(lambda t: t.to_local() if _is_dtensor(t) else t, tree)
+
+
+def _recsys_model(prog: "CellProgram", model):
+    if model is None:
+        raise ValueError(f"{prog.arch_id}: a recsys step on a mesh needs "
+                         "the model's config and frontend coefficients "
+                         "(RecsysModel.without_weights())")
+    return model
+
+
+def _mesh_serve(prog: "CellProgram", model, params, inputs):
+    """A recsys serving or retrieval step on a process mesh: the body on
+    the local shards, the scores a DTensor of the rank's rows (replicated
+    for retrieval, whose one query every rank scores whole)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import placements_for
+    mesh = _process_mesh()
+    model = _recsys_model(prog, model)
+    first = next(iter(inputs.values()))
+    rows = _axes_of(first, mesh, 0) if _is_dtensor(first) else ()
+    sh = spmd.Shards(mesh, rows=rows)
+    args = (_local(params), sh, _ents(params, mesh))
+    batch = _local(inputs)
+    if prog.kind == "recsys_serve":
+        out = recsys_lib.serve_scores(model, batch, *args)
+    else:
+        out = recsys_lib.retrieval_scores(model, batch, prog.n_candidates,
+                                          *args)
+    return DTensor.from_local(out, mesh.device_mesh,
+                              placements_for([rows], mesh), run_check=False)
+
+
+def _mesh_step(prog: "CellProgram", model, params, opt_state, inputs):
+    """The train step on a process mesh (see the module docstring)."""
+    from repro_torch.optim.base import Optimizer
+    mesh = _process_mesh()
+    ents = _ents(params, mesh)
     opt = prog.optimizer
     if prog.fused:
         opt = Optimizer(opt.init, lambda g, s, p: prog.optimizer.update(
@@ -421,11 +472,14 @@ def _mesh_step(prog: "CellProgram", params, opt_state, inputs):
         loss = lambda p, b: gnn_lib.gnn_loss(p, b, cfg, sh, ents)
         split = None
     else:
-        raise ValueError(f"{prog.arch_id}: {prog.kind} on a mesh is not "
-                         "ported (ROADMAP.md queue 1, \"recsys on a mesh\")")
+        model = _recsys_model(prog, model)
+        sh = spmd.Shards(mesh, rows=_axes_of(inputs["labels"], mesh, 0))
+        batch = {k: v.to_local() for k, v in inputs.items()}
+        loss = lambda p, b: recsys_lib.recsys_loss(model, b, p, sh, ents)
+        split = None
     p_loc, s_loc, loss_v = _make_train_step(
         loss, opt, prog.microbatch, prog.fused, split)(
-            local(params), local(opt_state), batch)
+            _local(params), _local(opt_state), batch)
     return _rewrap(params, p_loc), _rewrap(opt_state, s_loc), loss_v
 
 

@@ -21,8 +21,8 @@ steps included.  Prints the parameter count, the reference's
 ``optimizer=fused-adafactor`` (it prints that for every train cell), and
 the first and last loss.
 
-``--mesh`` trains the LM archs and ``gatedgcn`` on a process mesh, one
-process a rank, under ``torchrun``::
+``--mesh`` trains on a process mesh, one process a rank, under
+``torchrun``::
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch deepseek-7b --mesh debug \
@@ -35,8 +35,9 @@ process a rank, under ``torchrun``::
 draws the whole weights and each batch from the seeded generators and
 keeps its shard (``launch.steps.place_params`` / ``place_inputs``), so a
 meshed run sees the unmeshed run's weights and batches; rank 0 prints.
-Recsys archs are refused under ``--mesh`` (their tables' row shards under
-the ``sigbag`` kernel are ``ROADMAP.md``'s "recsys on a mesh").
+A recsys arch's tables are row-sharded over "model" and its batch split
+over "batch"; its ranks keep the model's config and frontend
+coefficients (``RecsysModel.without_weights()``) beside their shards.
 """
 
 from __future__ import annotations
@@ -89,10 +90,6 @@ def _mesh(ap, args, dev):
     from repro_torch.launch.mesh import make_process_mesh, make_production_mesh
     if args.mesh == "none":
         return None
-    if get_arch(args.arch).family == "recsys":
-        ap.error(f"--mesh {args.mesh} for {args.arch}: recsys on a mesh is "
-                 "not ported (its tables' row shards under the sigbag "
-                 "kernel): ROADMAP.md queue 1, \"recsys on a mesh\"")
     try:
         if args.mesh == "debug":
             return make_process_mesh(None, ("data", "model"), device=dev)
@@ -128,7 +125,9 @@ def main(argv=None) -> TrainState:
             opt_state = prog.optimizer.init(params)
         else:
             params = steps.place_params(prog, params, mesh)
-            model = None          # every rank keeps its shards only
+            # every rank keeps its shards only
+            model = (model.without_weights() if prog.family == "recsys"
+                     else None)
             opt_state = steps.init_opt_state(prog, params)
         n = sum(p.numel() for p in tree_leaves(params))
         say(f"{args.arch}/{cell}: {n:,} params, optimizer=fused-adafactor")

@@ -25,10 +25,26 @@ seed gives the same model in every process.
 Every forward takes an optional ``params``, the reference's parameter
 dict (``model.params()`` by default): training differentiates that tree
 (``torch.autograd.grad``), with the model supplying the config, the
-coefficients and the frontend's two calls.  The reference's
-``sharding.rules.constrain`` calls are no-ops without a mesh and are left
-out: recsys training on a mesh, with its tables' row shards, is
-``ROADMAP.md`` queue 1's "recsys on a mesh".
+coefficients and the frontend's two calls.
+
+On a process mesh the same body runs on each rank's local shards, given
+a shard context (``sharding.spmd.Shards``) and each leaf's per-dim axes
+(``ents``, from ``sharding.params.recsys_param_specs``): the batch rows
+split over ``Shards.rows``, the tables (``tables``, ``wide``,
+``minhash_table`` over their 2^b / V axis, ``item_table`` over its rows)
+row-sharded over "model", every other weight replicated.  A lookup
+gathers the rank's rows of its shard with the ids shifted by the shard's
+first row, clamped and the gathered rows multiplied by the in-shard mask,
+then sums across "model" (``spmd.psum``, whose backward is the identity);
+the frontend runs ``minhash2u`` on the rank's rows and the row-shard
+``sigbag`` launch, then the same sum.  Replicated weights enter through
+``Shards.use``, so their gradients, and the tables', sum over the batch
+axes; the loss is the mean over the global batch.  The reference's
+``constrain`` points hold by construction there: the ids, the embeddings
+and the attention input are the rank's rows, whole over "model".
+Without a mesh every collective is the identity.  A table whose axis a
+mesh does not divide stays whole (the spec drops the axis) and its
+lookup sums over no axis.
 """
 
 from __future__ import annotations
@@ -42,11 +58,16 @@ from repro_torch.core.u32 import narrow
 from repro_torch.kernels.minhash import minhash2u
 from repro_torch.kernels.sigbag import sigbag
 from repro_torch.models.layers import TreeModel, init_mlp, mlp, normal_init
+from repro_torch.sharding import spmd
+from repro_torch.tree import tree_map
 
 # candidates scored at once by ``retrieval_scores``: at 65,536 the widest
 # intermediate (DIN's 72-wide attention input over 100 steps, AutoInt's
 # q/k/v) stays near 2 GB where 1,000,000 at once would need 50-84 GB
 RETRIEVAL_CHUNK = 65_536
+
+# the tables row-sharded over "model" (``recsys_param_specs``)
+TABLES = ("tables", "wide", "minhash_table", "item_table")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,17 +111,51 @@ def _check_interaction(cfg: RecsysConfig) -> None:
 # Embedding lookups
 # ---------------------------------------------------------------------------
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _row_axes(sh: spmd.Shards, ent, dim: int) -> Tuple[str, ...]:
+    """The mesh axes a table's ``dim`` is split over (none without a
+    mesh)."""
+    return () if sh.mesh is None else tuple(ent[dim] or ())
+
+
+def _local_ids(sh: spmd.Shards, axes, ids: torch.Tensor, rows: int):
+    """``ids`` (int64) shifted into the shard of ``rows`` rows this rank
+    holds along ``axes`` and clamped, with the mask of those in it (None
+    where the table is whole)."""
+    ids = ids.to(torch.int64)
+    if sh.extent(axes) == 1:
+        return ids, None
+    ids = ids - sh.index(axes) * rows
+    mask = (ids >= 0) & (ids < rows)
+    return ids.clamp(0, rows - 1), mask
+
+
+def _sum_shards(sh: spmd.Shards, axes, out: torch.Tensor, mask):
+    """The gathered rows of a shard, out-of-shard ones zeroed (the mask
+    multiplies the rows, so a clamped id adds neither values nor
+    gradient), summed across ``axes``."""
+    if mask is not None:
+        out = out * mask[..., None].to(out.dtype)
+    return spmd.psum(out, sh.mesh, axes)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     shards: Optional[spmd.Shards] = None,
+                     ent=spmd.WHOLE) -> torch.Tensor:
     """Single-hot per-field lookup: table (F, V, d), ids (B, F) -> (B, F, d).
 
     Rows are addressed as ``f * V + id`` in int64: a full-width table holds
-    more elements than int32 can count.
+    more elements than int32 can count.  On a process mesh (``shards``,
+    ``ent`` the table's per-dim axes) ``table`` is the rank's shard of V
+    rows, looked up and summed across the axes splitting V.
     """
+    sh = shards or spmd.Shards()
     n_f, vocab, d = table.shape
+    axes = _row_axes(sh, ent, 1)
+    local, mask = _local_ids(sh, axes, ids, vocab)
     offsets = torch.arange(n_f, dtype=torch.int64, device=ids.device) * vocab
-    rows = (ids.to(torch.int64) + offsets).reshape(-1)
-    return table.reshape(n_f * vocab, d).index_select(0, rows).reshape(
-        ids.shape[0], n_f, d)
+    rows = (local + offsets).reshape(-1)
+    return _sum_shards(sh, axes, table.reshape(n_f * vocab, d).index_select(
+        0, rows).reshape(ids.shape[0], n_f, d), mask)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
@@ -116,10 +171,18 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-def embedding_bag_seq(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(V, d) x (B, L) -> (B, L, d) gather (the per-step bag)."""
-    return table.index_select(0, ids.reshape(-1).to(torch.int64)).reshape(
-        *ids.shape, table.shape[1])
+def embedding_bag_seq(table: torch.Tensor, ids: torch.Tensor,
+                      shards: Optional[spmd.Shards] = None,
+                      ent=spmd.WHOLE) -> torch.Tensor:
+    """(V, d) x ids (...) -> (..., d) gather (the per-step bag).  On a
+    process mesh (``shards``, ``ent`` the table's per-dim axes) ``table``
+    is the rank's shard of rows, looked up and summed across the axes
+    splitting them."""
+    sh = shards or spmd.Shards()
+    axes = _row_axes(sh, ent, 0)
+    local, mask = _local_ids(sh, axes, ids, table.shape[0])
+    return _sum_shards(sh, axes, table.index_select(
+        0, local.reshape(-1)).reshape(*ids.shape, table.shape[1]), mask)
 
 
 # ---------------------------------------------------------------------------
@@ -166,10 +229,19 @@ class RecsysModel(TreeModel):
         return minhash2u(set_ids, set_counts.reshape(-1), self.a1, self.a2,
                          s=cfg.minhash_s, b=cfg.minhash_b)
 
-    def signature_bag(self, sig: torch.Tensor,
-                      table: torch.Tensor) -> torch.Tensor:
-        """(B, d) Eq. (5) embedding of the signatures in ``table``."""
-        return sigbag(sig, table)
+    def signature_bag(self, sig: torch.Tensor, table: torch.Tensor,
+                      row0: int = 0) -> torch.Tensor:
+        """(B, d) Eq. (5) embedding of the signatures in ``table``, the row
+        shard from ``row0`` (0: the whole table)."""
+        return sigbag(sig, table, row0)
+
+    def without_weights(self) -> "RecsysModel":
+        """The config and the frontend's coefficients, no parameters: what
+        a train step on a process mesh needs of the model, whose ranks
+        keep only their shards of the weights."""
+        frontend = self.cfg.use_minhash_frontend
+        return type(self)(self.cfg, {}, self.a1 if frontend else None,
+                          self.a2 if frontend else None)
 
 
 def init_recsys_params(cfg: RecsysConfig,
@@ -235,11 +307,22 @@ def recsys_param_shapes(cfg: RecsysConfig) -> Dict:
 
 def minhash_frontend(model: RecsysModel, set_ids: torch.Tensor,
                      set_counts: torch.Tensor,
-                     params: Optional[Dict] = None) -> torch.Tensor:
-    """Sparse set -> k b-bit signatures -> signature embedding-bag (B, d)."""
+                     params: Optional[Dict] = None,
+                     shards: Optional[spmd.Shards] = None,
+                     ent=spmd.WHOLE) -> torch.Tensor:
+    """Sparse set -> k b-bit signatures -> signature embedding-bag (B, d).
+    On a process mesh (``shards``, ``ent`` the table's per-dim axes): the
+    rank's rows of the sets, its row shard of ``minhash_table`` bagged by
+    the row-shard ``sigbag`` launch and summed across the axes splitting
+    the 2^b rows."""
+    sh = shards or spmd.Shards()
     p = model.params() if params is None else params
-    return model.signature_bag(model.signatures(set_ids, set_counts),
-                               p["minhash_table"])
+    table = p["minhash_table"]
+    sig = model.signatures(set_ids, set_counts)
+    axes = _row_axes(sh, ent, 1)
+    return spmd.psum(model.signature_bag(sig, table,
+                                         sh.index(axes) * table.shape[1]),
+                     sh.mesh, axes)
 
 
 def _squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -247,8 +330,23 @@ def _squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + 1e-9)
 
 
+def _ready(sh: spmd.Shards, p: Dict, ents) -> Dict:
+    """The parameters made ready for the rank's rows (``Shards.use``): a
+    table keeps its row shards (its gradient summed over the batch axes
+    only: its lookups are summed across "model"), every other weight is
+    replicated, its gradient summed over the batch axes."""
+    if sh.mesh is None:
+        return p
+    return {k: (sh.use(v, ents[k], keep=("model",), split=sh.rows)
+                if k in TABLES else
+                tree_map(lambda t, e: sh.use(t, e), v, ents[k]))
+            for k, v in p.items()}
+
+
 def recsys_logits(model: RecsysModel, batch: Dict[str, torch.Tensor],
-                  params: Optional[Dict] = None) -> torch.Tensor:
+                  params: Optional[Dict] = None,
+                  shards: Optional[spmd.Shards] = None,
+                  ents=spmd.WHOLE) -> torch.Tensor:
     """(B,) logits of ``model`` under its own config, with ``params`` (the
     model's own by default).  batch keys by interaction:
       all:          ``set_ids (B, nnz)``, ``set_counts (B,)`` with the
@@ -256,27 +354,38 @@ def recsys_logits(model: RecsysModel, batch: Dict[str, torch.Tensor],
       concat / self-attn: ``field_ids (B, F)``
       target-attn / multi-interest: ``hist_ids (B, L)``, ``hist_mask (B,
                     L)``, ``target_id (B,)``
+    On a process mesh (``shards``; ``params`` the rank's shards, ``ents``
+    their per-dim axes, ``batch`` its rows): the rank's rows' logits.
     """
     cfg = model.cfg
-    p = model.params() if params is None else params
+    sh = shards or spmd.Shards()
+    p = _ready(sh, model.params() if params is None else params, ents)
     extra = None
     if cfg.use_minhash_frontend:
         extra = minhash_frontend(model, batch["set_ids"],
-                                 batch["set_counts"], p)       # (B, d)
+                                 batch["set_counts"], p, sh,
+                                 ents["minhash_table"])        # (B, d)
 
     if cfg.interaction == "concat":
+        # the reference constrains ids to ("batch", None) and emb to
+        # ("batch", None, None): the rank's rows, whole over "model"
         ids = batch["field_ids"]
-        emb = embedding_lookup(p["tables"], ids)                # (B, F, d)
-        wide = embedding_lookup(p["wide"], ids)[..., 0].sum(1)
+        emb = embedding_lookup(p["tables"], ids, sh,
+                               ents["tables"])                  # (B, F, d)
+        wide = embedding_lookup(p["wide"], ids, sh,
+                                ents["wide"])[..., 0].sum(1)
         deep_in = emb.reshape(emb.shape[0], -1)
         if extra is not None:
             deep_in = torch.cat([deep_in, extra], dim=-1)
         return wide + mlp(deep_in, p["deep"]["w"], p["deep"]["b"])[:, 0]
 
     if cfg.interaction == "self-attn":
-        x = embedding_lookup(p["tables"], batch["field_ids"])   # (B, F, d)
+        x = embedding_lookup(p["tables"], batch["field_ids"], sh,
+                             ents["tables"])                    # (B, F, d)
         if extra is not None:
             x = torch.cat([x, extra[:, None, :]], dim=1)
+        # the reference constrains ids and x to ("batch", ...): the rank's
+        # rows, whole over "model"
         h, da = cfg.n_attn_heads, cfg.d_attn
         for lp in p["attn_layers"]:
             B, F, _ = x.shape
@@ -290,10 +399,13 @@ def recsys_logits(model: RecsysModel, batch: Dict[str, torch.Tensor],
         flat = x.reshape(x.shape[0], -1)
         return mlp(flat, p["head"]["w"], p["head"]["b"])[:, 0]
 
+    items = lambda ids: embedding_bag_seq(p["item_table"], ids, sh,
+                                          ents["item_table"])
     if cfg.interaction == "target-attn":
-        hist = embedding_bag_seq(p["item_table"], batch["hist_ids"])
-        tgt = p["item_table"].index_select(
-            0, batch["target_id"].to(torch.int64))
+        # the reference constrains hist to ("batch", None, None): the
+        # rank's rows, whole over "model"
+        hist = items(batch["hist_ids"])
+        tgt = items(batch["target_id"])
         t = tgt[:, None, :].expand_as(hist)
         att_in = torch.cat([hist, t, hist - t, hist * t], dim=-1)
         scores = mlp(att_in, p["attn_mlp"]["w"],
@@ -308,9 +420,9 @@ def recsys_logits(model: RecsysModel, batch: Dict[str, torch.Tensor],
         return mlp(torch.cat(head_in, dim=-1), p["head"]["w"],
                    p["head"]["b"])[:, 0]
 
-    # multi-interest
-    hist = embedding_bag_seq(p["item_table"], batch["hist_ids"])
-    tgt = p["item_table"].index_select(0, batch["target_id"].to(torch.int64))
+    # multi-interest; hist constrained as DIN's
+    hist = items(batch["hist_ids"])
+    tgt = items(batch["target_id"])
     B, L, _ = hist.shape
     hS = hist @ p["S"]                                          # (B, L, d)
     # the routing logits and mask take the parameters' type (float32 as
@@ -333,27 +445,38 @@ def recsys_logits(model: RecsysModel, batch: Dict[str, torch.Tensor],
 
 
 def recsys_loss(model: RecsysModel, batch: Dict[str, torch.Tensor],
-                params: Optional[Dict] = None) -> torch.Tensor:
+                params: Optional[Dict] = None,
+                shards: Optional[spmd.Shards] = None,
+                ents=spmd.WHOLE) -> torch.Tensor:
     """Binary logistic loss on {0, 1} ``labels``: the mean of
     ``softplus(-z) + (1 - y) z``, softplus as ``logaddexp(x, 0)``, the
     reference's ``jax.nn.softplus`` (``F.softplus`` turns linear above
-    20)."""
-    z = recsys_logits(model, batch, params).to(torch.float32)
+    20).  The mean is the sum over the global batch divided by its rows:
+    on a process mesh (``recsys_logits``' arguments) the rank's sum summed
+    over the batch axes; on every rank."""
+    sh = shards or spmd.Shards()
+    z = recsys_logits(model, batch, params, sh, ents).to(torch.float32)
     y = batch["labels"].to(torch.float32)
-    return torch.mean(torch.logaddexp(-z, torch.zeros_like(z))
-                      + (1.0 - y) * z)
+    loss = torch.logaddexp(-z, torch.zeros_like(z)) + (1.0 - y) * z
+    return spmd.psum(loss.sum(), sh.mesh, sh.rows) / (
+        loss.shape[0] * sh.extent(sh.rows))
 
 
 @torch.inference_mode()
-def serve_scores(model: RecsysModel,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Online / offline scoring: sigmoid(logits), (B,)."""
-    return torch.sigmoid(recsys_logits(model, batch))
+def serve_scores(model: RecsysModel, batch: Dict[str, torch.Tensor],
+                 params: Optional[Dict] = None,
+                 shards: Optional[spmd.Shards] = None,
+                 ents=spmd.WHOLE) -> torch.Tensor:
+    """Online / offline scoring: sigmoid(logits), (B,) (on a process mesh,
+    ``recsys_logits``' arguments: the rank's rows)."""
+    return torch.sigmoid(recsys_logits(model, batch, params, shards, ents))
 
 
 @torch.inference_mode()
 def retrieval_scores(model: RecsysModel, batch: Dict[str, torch.Tensor],
-                     n_candidates: int) -> torch.Tensor:
+                     n_candidates: int, params: Optional[Dict] = None,
+                     shards: Optional[spmd.Shards] = None,
+                     ents=spmd.WHOLE) -> torch.Tensor:
     """Score one query context against ``n_candidates`` items
     (``retrieval_cand``): (n_candidates,) logits.
 
@@ -361,7 +484,9 @@ def retrieval_scores(model: RecsysModel, batch: Dict[str, torch.Tensor],
     model (DIN, MIND) and id ``c % vocab`` in the last field of a field
     model (Wide & Deep, AutoInt), whose other inputs repeat the query's,
     as in the reference.  Candidates are scored ``RETRIEVAL_CHUNK`` at a
-    time; each row's logit does not depend on the others.
+    time; each row's logit does not depend on the others.  On a process
+    mesh (``recsys_logits``' arguments, the query whole on every rank)
+    every rank scores every candidate.
     """
     cfg = model.cfg
     if any(v.shape[0] != 1 for v in batch.values()):
@@ -381,5 +506,5 @@ def retrieval_scores(model: RecsysModel, batch: Dict[str, torch.Tensor],
         else:
             rep["field_ids"] = torch.cat([rep["field_ids"][:, :-1],
                                           cand[:, None]], dim=1)
-        out.append(recsys_logits(model, rep))
+        out.append(recsys_logits(model, rep, params, shards, ents))
     return torch.cat(out)

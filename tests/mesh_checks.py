@@ -1,4 +1,4 @@
-"""The rank side of ``test_torch_mesh_train.py``: functions a
+"""The rank side of the mesh tests (``test_torch_mesh_*.py``): functions a
 ``torch_spawn.RankPool`` runs in every rank as ``fn(rank, world, ...)``.
 They import torch and the port only -- never JAX -- and exchange numpy.
 Rank 0 returns the whole results; the other ranks return what the check
@@ -57,11 +57,23 @@ def with_capacity(cfg, capacity_factor):
         cfg.moe, capacity_factor=capacity_factor))
 
 
+def frontend_model(prog, coeffs):
+    """A recsys program's weightless model (config and the handed-over
+    frontend coefficients ``coeffs``, (a1, a2) uint32 or None); None for
+    another family."""
+    from repro_torch.convert import recsys_params_from_jax
+    if prog.family != "recsys":
+        return None
+    return recsys_params_from_jax({}, prog.config, *(coeffs or (None, None)),
+                                  device="cpu")
+
+
 def train_steps(rank, world, shape, arch, cell, starts, optimizer_n,
-                microbatch, capacity_factor=None):
+                microbatch, capacity_factor=None, coeffs=None):
     """One step of ``arch``'s ``cell`` at smoke size on a (shape) mesh from
     each handed-over (parameters, optimizer state, batch) in ``starts``:
-    the loss, and rank 0's whole parameters and state after, for each."""
+    the loss, and rank 0's whole parameters and state after, for each.
+    A recsys arch's frontend takes the coefficients ``coeffs``."""
     from repro_torch.launch.steps import _pick_optimizer, build_cell
     mesh = _mesh(shape)
     prog = build_cell(arch, cell, smoke=True, device="cpu")
@@ -70,6 +82,7 @@ def train_steps(rank, world, shape, arch, cell, starts, optimizer_n,
     prog.microbatch = microbatch
     if prog.family == "lm":
         prog.config = with_capacity(prog.config, capacity_factor)
+    model = frontend_model(prog, coeffs)
     out = []
     for params_np, state_np, batch_np in starts:
         if prog.fused:
@@ -80,9 +93,60 @@ def train_steps(rank, world, shape, arch, cell, starts, optimizer_n,
             params = params_to_mesh(params_np, prog, mesh)
             state = steps.place_opt_state(prog, state, mesh)
             inputs = steps.place_inputs(prog, tree_from_numpy(batch_np, "cpu"))
-            params, state, loss = prog.step(None, params, state, inputs)
+            params, state, loss = prog.step(model, params, state, inputs)
             out.append((float(loss), _whole(params, rank), _whole(state, rank)))
     return out
+
+
+def recsys_grads(rank, world, shape, arch, params_np, batch_np, coeffs,
+                 changes=None):
+    """``recsys_loss`` of a recsys arch's smoke ``train_batch`` cell (its
+    config with ``changes``) on a (shape) mesh and its gradient in every
+    parameter, from the handed-over weights and batch: (loss, rank 0's
+    whole gradient tree, each table's placements)."""
+    import dataclasses
+    from repro_torch.launch.steps import _rewrap, build_cell
+    from repro_torch.models import recsys
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import entries_of
+    from repro_torch.tree import tree_leaves, unflatten_like
+    mesh = _mesh(shape)
+    prog = build_cell(arch, "train_batch", smoke=True, device="cpu")
+    prog.config = dataclasses.replace(prog.config, **(changes or {}))
+    model = frontend_model(prog, coeffs)
+    with set_mesh(mesh):
+        params = params_to_mesh(params_np, prog, mesh)
+        inputs = steps.place_inputs(prog, tree_from_numpy(batch_np, "cpu"))
+        ents = tree_map(lambda t: entries_of(t.placements, mesh, t.dim()),
+                        params)
+        placements = {k: [str(p) for p in params[k].placements]
+                      for k in recsys.TABLES if k in params}
+        sh = spmd.Shards(mesh, rows=entries_of(
+            inputs["labels"].placements, mesh, 1)[0])
+        live = tree_map(lambda t: t.to_local().detach().requires_grad_(True),
+                        params)
+        loss = recsys.recsys_loss(model, {k: v.to_local() for k, v in
+                                          inputs.items()}, live, sh, ents)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        whole = _whole(_rewrap(params, unflatten_like(live, list(grads))),
+                       rank)
+    return float(loss), whole, placements
+
+
+def recsys_scores(rank, world, shape, arch, cell, params_np, batch_np,
+                  coeffs):
+    """A recsys serving or retrieval ``cell``'s step on a (shape) mesh,
+    the parameters as DTensors: its output gathered whole, and this rank's
+    local rows of it."""
+    from repro_torch.launch.steps import build_cell
+    mesh = _mesh(shape)
+    prog = build_cell(arch, cell, smoke=True, device="cpu")
+    model = frontend_model(prog, coeffs)
+    with set_mesh(mesh):
+        params = params_to_mesh(params_np, prog, mesh)
+        inputs = steps.place_inputs(prog, tree_from_numpy(batch_np, "cpu"))
+        out = prog.step(model, params, inputs)
+    return out.full_tensor().numpy(), out.to_local().numpy()
 
 
 def moe_ep(rank, world, shape, cfg_kw, params_np, x_np):
@@ -122,16 +186,17 @@ def compressed(rank, world, g_full, draws):
     return f(g, draws=torch.from_numpy(draws.copy())).numpy()
 
 
-def reshard_checkpoint(rank, world, ckpt_dir, arch, params_np, state_np):
-    """deepseek-7b's smoke parameters and AdamW state placed on a (1, 4)
-    mesh and saved; restored on a (2, 2) mesh through
+def reshard_checkpoint(rank, world, ckpt_dir, arch, params_np, state_np,
+                       cell="train_4k"):
+    """``arch``'s smoke parameters and optimizer state (of its ``cell``)
+    placed on a (1, 4) mesh and saved; restored on a (2, 2) mesh through
     ``elastic.reshard_restore``.  Returns each rank's local chunks after
     the restore (and rank 0's whole restored tree)."""
     from repro_torch.launch.steps import build_cell
     from repro_torch.sharding.rules import NamedSharding
     from repro_torch.train import checkpoint, elastic
     from repro_torch.tree import map_with_path, path_leaves
-    prog = build_cell(arch, "train_4k", smoke=True, device="cpu")
+    prog = build_cell(arch, cell, smoke=True, device="cpu")
     tree = {"params": tree_from_numpy(params_np, "cpu"),
             "opt_state": tree_from_numpy(state_np, "cpu")}
     wide = _mesh((1, world))

@@ -144,7 +144,7 @@ def test_loss_is_softplus_without_a_threshold(monkeypatch):
 
     _, _, model = _smoke("din")
     monkeypatch.setattr(t_recsys, "recsys_logits",
-                        lambda m, batch, params=None: z)
+                        lambda m, batch, params=None, *shards: z)
     got = t_recsys.recsys_loss(model, {"labels": y})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
@@ -182,8 +182,8 @@ def test_frontend_gradient_through_the_bag_function():
     ``sigbag_plain`` (the check chip_smoke.py makes on the card)."""
 
     class PlainBag(t_recsys.RecsysModel):
-        def signature_bag(self, sig, table):
-            return sigbag_plain(sig, table)
+        def signature_bag(self, sig, table, row0=0):
+            return sigbag_plain(sig, table, row0)
 
     _, _, model = _smoke("autoint")
     plain = PlainBag(model.cfg, model.params(), model.a1, model.a2)
@@ -294,9 +294,6 @@ def test_train_launcher_resumes(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_what_is_not_ported(capsys):
-    with pytest.raises(SystemExit):
-        t_train.main(["--arch", "din", "--mesh", "debug", "--device", "cpu"])
-    assert "recsys on a mesh is not ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_train.main(["--arch", "graphsage", "--device", "cpu"])
     assert "not in the port" in capsys.readouterr().err

@@ -133,5 +133,5 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_args():
     with pytest.raises(ValueError, match="k="):
         sigbag_plain(tok[:, :8], table)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        sigbag_plain(tok, table.double())
+        sigbag_plain(tok, table.half())
     assert sigbag_cuda.launches == 0
