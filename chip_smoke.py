@@ -91,7 +91,15 @@ NCCL mesh beside unmeshed (float32 loss and every gradient bit for bit,
 launches counted, the host time of both paths under ``cProfile``);
 ``torchrun ... launch.train --arch wide-deep --no-smoke --mesh debug``,
 and at the same config a meshed run resumed from its checkpoint against
-the unbroken one.  Scratch data
+the unbroken one.  Phase 16 runs the multi-pod dry run
+(``launch.dryrun``) on the host: every arch x cell on the 16x16 and
+2x16x16 production meshes, its largest bytes a GPU and the roofline
+tables; then at world 1 builds seven cells that fit one card (the four
+recsys ``train_batch`` and GatedGCN's ``full_graph_sm``, ``molecule`` and
+``minibatch_lg``) on the card through the launcher's own functions,
+holds the bytes asked of the allocator to the dry run's ``args_bytes``,
+and runs a few steps of each: the temp the dry run cannot count, and the
+median step beside the roofline's projection.  Scratch data
 goes to ``build/smoke/`` and is removed at the end.  It exits non-zero,
 with no result line, when there is no CUDA device, when it is not run
 from a checkout, or when any check fails.
@@ -441,6 +449,21 @@ RECSYS_MESH_CLI_STEPS = 4
 RECSYS_RESUME_STEPS = 3
 # functions named in a host profile's line, by the self time they gained
 HOST_TOP = 8
+
+# The multi-pod dry run (phase 16): every arch x cell placed on the 16x16
+# and 2x16x16 production meshes on the host (ok and skipped records over
+# both), then at world 1 -- a (1, 1) mesh, one H100 -- the cells that fit
+# one card at published widths, built on the card by the launcher's own
+# functions: the allocator's growth against the dry run's args_bytes,
+# within its 512 B rounding a leaf, then DRYRUN_STEPS steps (the first
+# untimed)
+DRYRUN_RECORDS = (72, 8)
+DRYRUN_WORLD1 = (("wide-deep", "train_batch"), ("autoint", "train_batch"),
+                 ("din", "train_batch"), ("mind", "train_batch"),
+                 ("gatedgcn", "full_graph_sm"), ("gatedgcn", "molecule"),
+                 ("gatedgcn", "minibatch_lg"))
+DRYRUN_STEPS = 4
+ALLOC_ROUND = 512
 
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
@@ -1214,6 +1237,10 @@ def run(torch) -> int:
 
     # -- phase 15: recsys training on a process mesh ----------------------
     for name, n_launch in recsys_mesh(torch, dev, rows["sigbag"]).items():
+        rows[name]["launches"] += n_launch
+
+    # -- phase 16: the multi-pod dry run, its bytes on the card at world 1
+    for name, n_launch in dryrun_check(torch, dev).items():
         rows[name]["launches"] += n_launch
     log(smi)               # the card beside the numbers at the output's end
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
@@ -4900,6 +4927,161 @@ def gnn_training(torch, dev) -> None:
         f"bound {r['bound_ms']:.3f}), peak {r['peak']:,} B"
         for c, r in summary.items())
         + f"; sampler {summary['minibatch_lg']['sample_ms']:.3f} ms")
+
+
+def requested(torch) -> int:
+    """Bytes the caching allocator was asked for and still holds for live
+    tensors, before its rounding (``requested_bytes``)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_check(torch, dev) -> dict:
+    """Phase 16: (a) ``launch.dryrun.run_cell`` on every arch x cell at its
+    published config on both production meshes, on the host (the meta
+    device): ``DRYRUN_RECORDS`` ok and skipped records and no error, the
+    largest bytes a GPU on each mesh, the cells that do not fit 80 GB, and
+    ``roofline.report``'s two roofline tables.  (b) At world 1 (a (1, 1)
+    shape-only mesh), each cell of ``DRYRUN_WORLD1`` built on the card
+    through ``CellProgram.init_params``, ``optimizer.init`` and
+    ``init_inputs``: the growth of the bytes asked of the allocator
+    (``requested``) == the dry run's ``args_bytes`` (plus the recsys
+    frontend's coefficients, which the model holds and the reference's
+    parameters do not) within ``ALLOC_ROUND`` B a leaf, with the growth of
+    ``memory_allocated`` printed beside (rounded: a large block keeps its
+    segment's unsplit remainder, under 1 MiB); then ``DRYRUN_STEPS`` steps:
+    the peak's growth beside args + output - alias (the difference is the
+    temp the dry run cannot count), and the median step (host clock to a
+    sync) beside ``Roofline``'s projected step at (1, 1).  Returns the ``sigbag`` and
+    ``minhash2u`` launches of those steps."""
+    import math
+
+    from repro_torch.configs import all_archs, cells_for
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels.sigbag import sigbag_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.steps import build_cell, init_inputs
+    from repro_torch.roofline import hardware as hw
+    from repro_torch.roofline import report
+    from repro_torch.roofline.analysis import analyze
+
+    t_phase = time.perf_counter()
+
+    # -- (a) every cell on both production meshes, on the host ------------
+    cells = [(a, c.name) for a in sorted(all_archs()) for c in cells_for(a)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        recs = list(dryrun.run_all(cells, [False, True]))
+    secs = time.perf_counter() - t0
+    status = [r["status"] for r in recs]
+    if "error" in status:
+        raise AssertionError("dry run: " + "; ".join(
+            ln for ln in said.getvalue().splitlines()
+            if ln.startswith("FAIL")))
+    if (status.count("ok"), status.count("skipped")) != DRYRUN_RECORDS:
+        raise AssertionError(f"dry run: {status.count('ok')} ok and "
+                             f"{status.count('skipped')} skipped records, "
+                             f"want {DRYRUN_RECORDS}")
+    log(f"[dryrun] {len(cells)} cells x 16x16, 2x16x16 at published "
+        f"configs, placed on the host (meta device, no card): "
+        f"{status.count('ok')} ok, {status.count('skipped')} skipped, 0 "
+        f"errors in {secs:.2f} s")
+    by_key = {(r["arch"], r["cell"], r["mesh"]): r for r in recs}
+    for mesh in ("16x16", "2x16x16"):
+        ok = [r for r in recs if r["mesh"] == mesh and r["status"] == "ok"]
+        top = max(ok, key=lambda r: r["memory"]["total_per_chip_bytes"])
+        over = [f"{r['arch']}/{r['cell']} "
+                f"{r['memory']['total_per_chip_bytes']:,} B" for r in ok
+                if not r["memory"]["total_per_chip_bytes"] <= hw.HBM_BYTES]
+        log(f"[dryrun] {mesh}: largest args + output - alias a GPU "
+            f"{top['memory']['total_per_chip_bytes']:,} B "
+            f"({top['arch']}/{top['cell']}; temp not counted); over "
+            f"{hw.HBM_BYTES / 1e9:.0f} GB: {', '.join(over) or 'none'}")
+        log(f"[dryrun] roofline {mesh} (analytic counts; H100 constants, "
+            f"collectives over {ok[0]['roofline']['link']} at "
+            f"{ok[0]['roofline']['link_bw'] / 1e9:.0f} GB/s):\n"
+            + report.roofline_table(by_key, mesh))
+
+    # -- (b) the byte count on the card at world 1 -------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh1 = abstract_mesh((1, 1))
+    kern, mh = sigbag_cuda, kmin.minhash2u_cuda
+    launches = {"sigbag": 0, "minhash2u": 0}
+    for arch, cell in DRYRUN_WORLD1:
+        mem = dryrun.run_cell(arch, cell, mesh=mesh1)["memory"]
+        prog = build_cell(arch, cell, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_req = torch.cuda.memory_allocated(), requested(torch)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+        model = prog.init_params(gen)
+        params = model.params()
+        state = prog.optimizer.init(params)
+        batch = init_inputs(prog, gen)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        asked = requested(torch) - base_req
+        coeffs = list(model.buffers())
+        want = mem["args_bytes"] + sum(t.numel() * t.element_size()
+                                       for t in coeffs)
+        slack = ALLOC_ROUND * (mem["args_leaves"] + len(coeffs))
+        if abs(asked - want) > slack:
+            raise AssertionError(f"{arch}/{cell}: the allocator was asked "
+                                 f"for {asked:,} B, the dry run places "
+                                 f"{want:,} B (within {slack:,})")
+        # the step reads the recsys model's config and coefficients only
+        shell = model.without_weights() if prog.family == "recsys" else None
+        del model
+        torch.cuda.reset_peak_memory_stats()
+        kern.launches = mh.launches = 0
+        walls, losses = [], []
+        for i in range(DRYRUN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = prog.step(shell, params, state, batch)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        got = {"sigbag": kern.launches, "minhash2u": mh.launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
+            - base_req
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{arch}/{cell}: losses {losses}")
+        n_want = DRYRUN_STEPS * bool(getattr(prog.config,
+                                             "use_minhash_frontend", False))
+        if any(v != n_want for v in got.values()):
+            raise AssertionError(f"{arch}/{cell}: launches {got}, want "
+                                 f"{n_want} each")
+        for name, n in got.items():
+            launches[name] += n
+        total = mem["total_per_chip_bytes"]
+        roof = analyze(prog, mesh1, memory_bytes=total)
+        ms = statistics.median(walls)
+        log(f"[dryrun world 1] {arch}/{cell}: asked of the allocator "
+            f"+{asked:,} B for args_bytes {mem['args_bytes']:,} B "
+            f"({', '.join(f'{k} {v:,}' for k, v in mem['args_breakdown'].items())})"
+            f" + frontend coefficients {want - mem['args_bytes']:,} B in "
+            f"{mem['args_leaves'] + len(coeffs)} leaves: {asked - want:+,} B "
+            f"(gate +-{slack:,}); memory_allocated +{grown:,} B "
+            f"({grown - want:+,} B: blocks rounded to 512 B, a large one "
+            f"keeping its segment's unsplit remainder under 1 MiB)")
+        log(f"[dryrun world 1] {arch}/{cell}: {DRYRUN_STEPS} steps: peak "
+            f"allocated +{peak:,} B (asked +{peak_req:,}) vs args + output "
+            f"- alias {total:,} B: temp the dry run cannot count "
+            f"{peak - total:,} B ({peak / total:.2f}x the total); median "
+            f"step {ms:.2f} ms (host clock to a sync, {len(walls)} steps) "
+            f"vs projected {roof.step_s * 1e3:.4f} ms ({roof.bottleneck}; "
+            f"compute {roof.compute_s * 1e3:.4f}, memory "
+            f"{roof.memory_s * 1e3:.4f}, collective "
+            f"{roof.collective_s * 1e3:.4f} ms: link {roof.link}), measured "
+            f"/ projected {ms / (roof.step_s * 1e3):.1f}x; loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {got}")
+        del shell, params, state, batch, loss
+        torch.cuda.empty_cache()
+    log(f"[dryrun] {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

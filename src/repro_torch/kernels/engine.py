@@ -5,7 +5,8 @@ format (port of ``repro.kernels.engine``).
     CUDA tensors; ``torch`` runs their plain versions on CPU tensors.  A
     backend never runs on the other device: no silent fallback.
   * ``TuningTable`` -- launch parameters keyed on (backend, scheme, k,
-    nnz bucket).  It is empty until ``tune()`` is ported.
+    nnz bucket).  It is empty: ``tune()`` is the one function of the
+    reference's modules still to port (see ``TuningTable``).
   * ``SignaturePlan`` / ``SignatureEngine`` -- a frozen description of one
     signature computation and its execution through the ``_RUNNERS``
     registry over (minhash | oph) x (2u | 4u | perm).
@@ -76,8 +77,12 @@ class TuningTable:
     """Launch parameters keyed on (backend, scheme, k, nnz bucket), as in
     the reference.  It is empty: the reference's entries were measured on
     a TPU, and ``tune()``, which would fill it for the card, is not ported
-    yet, so every lookup misses and the kernels run with their module
-    constants (``MINHASH_BLK_K``, ``OPH_THREADS``)."""
+    yet -- the roofline and the dry run it would sit beside are -- so
+    every lookup misses and the kernels run with their module constants
+    (``MINHASH_BLK_K``, ``OPH_THREADS``).  The ``minhash`` and ``oph``
+    launchers already take their block shape as an argument; the
+    ``"hamming"`` scheme's tiles are fixed when ``csrc/hamming.cu`` is
+    compiled, so tuning it needs more instantiations of that kernel."""
 
     def __init__(self):
         self.entries: Dict[str, dict] = {}

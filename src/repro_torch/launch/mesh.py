@@ -2,7 +2,7 @@
 
 Two kinds of mesh, with the same ``axis_names`` / ``shape`` surface, so
 that the sharding rules (``spec``, ``_resolve``, ``moe.ep_layout``) serve
-both:
+both (and a third, ``AbstractMesh``, of that surface alone):
 
   * ``Mesh`` -- what ``jax.sharding.Mesh`` is to the reference's
     retrieval fan-out: an array of device *positions* with axis names,
@@ -13,6 +13,12 @@ both:
     a ``torch.distributed.device_mesh.DeviceMesh`` of the same axis names
     and shape, and a process group per set of axes
     (``make_process_mesh``, ``make_production_mesh``).
+
+  * ``AbstractMesh`` -- a shape and axis names, no device and no process
+    group (``abstract_mesh``): what the dry run (``launch.dryrun``)
+    places the production shardings over and the roofline
+    (``roofline.analytic``) sizes collectives by, on a machine of any
+    size, as the reference lowers over forced host devices.
 
 Production shapes: a single pod (16, 16) over ("data", "model"), and
 multi-pod (2, 16, 16) over ("pod", "data", "model") -- the "pod" axis an
@@ -83,14 +89,55 @@ def _position(device) -> torch.device:
     return dev
 
 
+class AbstractMesh:
+    """A mesh of shape only: ``axis_names``, ``shape`` (each axis name to
+    its extent, in axis order) and ``size``; no device, no rank."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        dims = tuple(int(n) for n in shape)
+        if len(dims) != len(self.axis_names) or min(dims, default=1) < 1:
+            raise ValueError(f"a mesh of shape {dims} needs one positive "
+                             f"extent per axis of {self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated mesh axis name in {self.axis_names}")
+        self._dims = dims
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self._dims))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self._dims))
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"AbstractMesh({axes})"
+
+
+def abstract_mesh(shape: Sequence[int],
+                  axes: Sequence[str] = ("data", "model")) -> AbstractMesh:
+    """A shape-only mesh: no world-size check, nothing joined."""
+    return AbstractMesh(shape, axes)
+
+
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the production mesh: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: "DeviceLike" = None) -> "ProcessMesh":
     """The process mesh (16, 16) over ("data", "model"), or (2, 16, 16)
     over ("pod", "data", "model"), over a world of 256 / 512 ranks (one
     card each, from ``torchrun``); raises ``ValueError`` naming the
     world's size otherwise."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     need = int(np.prod(shape))
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))

@@ -1,23 +1,98 @@
-"""Model FLOPs per step (port of the model-FLOP part of
-``repro.roofline.analysis``): ``lm_model_flops``, ``gnn_model_flops``,
-``recsys_model_flops`` and ``model_flops_for(program)`` over a
-``launch.steps.CellProgram``, with the reference's formulas as they are.
+"""Model FLOPs per step and the three-term roofline (port of
+``repro.roofline.analysis``).
 
-``gnn_model_flops`` counts the layer's five d x d products on the N node
-rows; ``models.gnn.gatedgcn_layer`` runs four of them (A, B, C, V) on the E
-edge rows, so for a graph of mean degree E / N it undercounts the
-products by (4E + N) / 5N (~20x at ogbn-products' 25.3).  The port
-keeps the count the reference reports; ``chip_smoke.py`` bounds a GNN step
-by the products the layer runs.
+``lm_model_flops``, ``gnn_model_flops``, ``recsys_model_flops`` and
+``model_flops_for(program)`` over a ``launch.steps.CellProgram`` keep the
+reference's formulas as they are.  ``gnn_model_flops`` counts the layer's
+five d x d products on the N node rows; ``models.gnn.gatedgcn_layer``
+runs four of them (A, B, C, V) on the E edge rows, so for a graph of mean
+degree E / N it undercounts the products by (4E + N) / 5N (~20x at
+ogbn-products' 25.3).  The port keeps the count the reference reports;
+``chip_smoke.py`` bounds a GNN step by the products the layer runs.
 
-The reference's ``Roofline`` and ``analyze`` read XLA's compiled cost and
-memory analysis; their counterpart waits for ``ROADMAP.md`` queue 1,
-"``launch/dryrun.py`` and the rest of ``roofline/``".
+``Roofline`` / ``analyze`` give a step's three terms on H100 constants
+(``roofline.hardware``):
+
+    compute term    = FLOPs per GPU / peak FLOP/s
+    memory term     = HBM bytes per GPU / HBM bandwidth
+    collective term = collective bytes per GPU / link bandwidth
+
+The peak is bfloat16's for the LM family and float32's for GNN and
+recsys cells, which the port runs in float32 with TF32 off.  The link is
+``hardware.link_for(chips)``'s: InfiniBand past one node, NVLink within
+one, none for one GPU (the term is then 0).  The reference reads its
+counts from XLA's compiled cost analysis and HLO text (taking the larger
+of those and its analytic estimates); torch emits no compiled artifact,
+so ``analyze`` takes them from ``roofline.analytic.estimate`` alone and
+records the HLO entries of ``coll_breakdown`` as ``None``.  The fields
+keep the reference's names (``hlo_flops_per_chip`` ...) so that the dry
+run's records keep its schema.  The dominant term is the projected step
+time; MODEL_FLOPS / FLOPs is the share of the work that is "useful".
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict, Optional
+
 from repro_torch.models.transformer import count_active_params
+from repro_torch.roofline import hardware as hw
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    cell: str
+    mesh: str
+    chips: int
+    hlo_flops_per_chip: float
+    hlo_bytes_per_chip: float
+    coll_bytes_per_chip: float
+    coll_breakdown: Dict[str, Any]
+    model_flops: float
+    compute_s: float = 0.0
+    memory_s: float = 0.0
+    collective_s: float = 0.0
+    bottleneck: str = ""
+    useful_flop_frac: float = 0.0
+    peak_fraction: float = 0.0
+    memory_per_chip_bytes: float = 0.0
+    family: str = "lm"            # "lm": bfloat16 peak; else float32's
+    link: str = ""                # the link the collective term crosses
+    link_bw: Optional[float] = None
+
+    def finalize(self) -> "Roofline":
+        peak = (hw.PEAK_FLOPS_BF16 if self.family == "lm"
+                else hw.PEAK_FLOPS_F32)
+        self.link, self.link_bw = hw.link_for(self.chips)
+        self.compute_s = self.hlo_flops_per_chip / peak
+        self.memory_s = self.hlo_bytes_per_chip / hw.HBM_BW
+        self.collective_s = (self.coll_bytes_per_chip / self.link_bw
+                             if self.link_bw else 0.0)
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        self.bottleneck = max(terms, key=terms.get)
+        total_hlo = self.hlo_flops_per_chip * self.chips
+        self.useful_flop_frac = (self.model_flops / total_hlo
+                                 if total_hlo else 0.0)
+        # roofline fraction: useful model FLOPs per GPU over the time the
+        # dominant term implies, normalized by peak
+        step_s = max(terms.values())
+        if step_s > 0:
+            achieved = self.model_flops / self.chips / step_s
+            self.peak_fraction = achieved / peak
+        return self
+
+    @property
+    def step_s(self) -> float:
+        """The projected step: the largest of the three terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def row(self) -> str:
+        return (f"| {self.arch} | {self.cell} | {self.mesh} | "
+                f"{self.compute_s*1e3:.2f} | {self.memory_s*1e3:.2f} | "
+                f"{self.collective_s*1e3:.2f} | {self.bottleneck} | "
+                f"{self.useful_flop_frac:.2f} | {self.peak_fraction:.3f} |")
 
 
 def lm_model_flops(cfg, batch: int, seq: int, training: bool = True) -> float:
@@ -72,6 +147,14 @@ def recsys_model_flops(cfg, batch: int, training: bool = True) -> float:
     return (3.0 if training else 1.0) * fl * batch
 
 
+def first_leaf(tree):
+    """The first leaf, in flattening order, of a tree of dicts (a decode
+    cache's ``InputSpec``s)."""
+    while isinstance(tree, dict):
+        tree = tree[min(tree)]
+    return tree
+
+
 def model_flops_for(program, smoke: bool = False) -> float:
     """Model FLOPs of one step of ``program`` (a ``CellProgram``, or
     anything with its ``config``, ``family``, ``kind`` and
@@ -88,10 +171,7 @@ def model_flops_for(program, smoke: bool = False) -> float:
         # decode: one token over a cache of length L (attention reads the
         # cache; matmul flops are 2*N_active*B plus attention 2*B*L*H*hd*2)
         B = av["tokens"].shape[0]
-        leaf = av["cache"]                # a tree of InputSpecs
-        while isinstance(leaf, dict):
-            leaf = leaf[min(leaf)]
-        L = leaf.shape[2]
+        L = first_leaf(av["cache"]).shape[2]
         base = 2.0 * count_active_params(cfg) * B
         if cfg.attention == "mla":
             attn = (2.0 * B * L * cfg.n_heads * (cfg.kv_lora + cfg.qk_rope)
@@ -111,3 +191,23 @@ def model_flops_for(program, smoke: bool = False) -> float:
         return recsys_model_flops(cfg, B, training=False)
     return recsys_model_flops(cfg, B,
                               training=program.kind == "recsys_train")
+
+
+def analyze(program, mesh, smoke: bool = False,
+            memory_bytes: float = 0.0) -> Roofline:
+    """The roofline of one step of ``program`` on ``mesh`` (anything with
+    ``shape`` and ``size``: a shape-only ``launch.mesh.abstract_mesh``),
+    its counts from ``roofline.analytic.estimate``; ``memory_bytes`` is
+    the per-GPU footprint the caller measured or placed."""
+    from repro_torch.roofline.analytic import estimate
+    est = estimate(program, mesh)
+    breakdown = {"analytic": est["coll_breakdown"],
+                 "parsed_hlo_once_per_loop": None, "raw_hlo": None}
+    return Roofline(
+        arch=program.arch_id, cell=program.cell_name,
+        mesh="x".join(str(n) for n in mesh.shape.values()), chips=mesh.size,
+        hlo_flops_per_chip=est["flops"], hlo_bytes_per_chip=est["bytes"],
+        coll_bytes_per_chip=est["coll"], coll_breakdown=breakdown,
+        model_flops=model_flops_for(program, smoke),
+        memory_per_chip_bytes=memory_bytes, family=program.family,
+    ).finalize()

@@ -30,7 +30,8 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-# the batch-learning, recsys, LM, GNN and retrieval-mesh slices' modules,
+# the batch-learning, recsys, LM, GNN, retrieval-mesh, mesh-training and
+# dry-run slices' modules,
 # which the walk must have reached
 required = ["repro_torch." + m for m in (
     "core.minhash", "core.vw", "core.lsh", "optim", "optim.base",
@@ -42,7 +43,8 @@ required = ["repro_torch." + m for m in (
     "configs.llama4_scout", "configs.deepseek_v3_671b", "models.gnn",
     "configs.gatedgcn", "roofline.analysis", "roofline.hardware",
     "launch.mesh", "sharding.rules", "sharding.params", "sharding.spmd",
-    "optim.compression", "train.elastic")]
+    "optim.compression", "train.elastic", "launch.dryrun",
+    "roofline.analytic", "roofline.report")]
 for name in names + required:
     importlib.import_module(name)
 import chip_smoke, kernel_ab

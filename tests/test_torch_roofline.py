@@ -2,7 +2,7 @@
 against ``repro.roofline.analysis``: ``model_flops_for`` on every arch x
 cell, smoke and published, exactly (the same formulas on the same
 integers, the GNN undercount included), and the H100 constants of
-``roofline/hardware.py``."""
+``roofline/hardware.py`` with the link each mesh size crosses."""
 
 import types
 
@@ -65,5 +65,16 @@ def test_h100_constants():
     assert hardware.PEAK_FLOPS_BF16 == 989e12
     assert hardware.PEAK_FLOPS_F32 == 67e12
     assert hardware.HBM_BYTES == 80e9
+    assert hardware.NVLINK_BW == 450e9 and hardware.NET_BW == 50e9
     # the reference's TPU constants are not carried over
     assert hardware.PEAK_FLOPS_BF16 != 197e12
+    assert not hasattr(hardware, "ICI_BW")
+
+
+@pytest.mark.parametrize("ranks,link", [
+    (1, ("none", None)), (2, ("nvlink", 450e9)), (8, ("nvlink", 450e9)),
+    (9, ("net", 50e9)), (256, ("net", 50e9)), (512, ("net", 50e9))])
+def test_link_for(ranks, link):
+    """NVLink within an eight-card node, InfiniBand past it, no link for
+    one card."""
+    assert hardware.link_for(ranks) == link
