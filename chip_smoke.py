@@ -99,7 +99,16 @@ recsys ``train_batch`` and GatedGCN's ``full_graph_sm``, ``molecule`` and
 ``minibatch_lg``) on the card through the launcher's own functions,
 holds the bytes asked of the allocator to the dry run's ``args_bytes``,
 and runs a few steps of each: the temp the dry run cannot count, and the
-median step beside the roofline's projection.  Scratch data
+median step beside the roofline's projection.  Phase 17 runs the engine's
+tuning loop, ``tune()``, at the shapes the main paths launch (``minhash2u``
+/ ``minhash4u`` at k = 500 and 200, ``minhash2u`` at the recsys frontend's
+k = 64, ``oph2u`` / ``oph4u`` at k = 512, ``packed_match`` on the exact
+flush's block and the sentinel wire), every candidate launch shape timed
+beside the default and the bound and held bit-exact against the plain
+version; the table it writes steers fresh engines, ``packed_match`` and an
+``IndexSearcher`` over phase 5's index, and a shape the build lacks is
+refused.  Phase 2's edge chunks and phase 5's odd shapes run at every
+launch shape a table may name.  Scratch data
 goes to ``build/smoke/`` and is removed at the end.  It exits non-zero,
 with no result line, when there is no CUDA device, when it is not run
 from a checkout, or when any check fails.
@@ -112,6 +121,7 @@ a ``{"kernels": [...]}`` JSON line, and as the last line
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -189,9 +199,11 @@ EDGE_ROWS = (1, 2, 3, 4, 5, 31, 100, 1_023, 1_024, 1_025, 2_047, 2_048,
              2_049, 4_096, 5_000)
 EDGE_T = (0, 1, 2**31 - 2, 2**31 - 1)
 # minhash2u edge chunk (phase 2): row lengths, k, s, b; every case in both
-# variants, and packed where k is a multiple of 128.  k <= 128 runs one
-# function a thread; 256, 500 one block of four a thread; 640 and 1,024
-# two blocks a row (the second partly live at 640)
+# variants at every launch shape (MINHASH_THREADS), and packed where k is a
+# multiple of the launch's group.  At the default 128 threads k <= 128
+# runs one function a thread; 256, 500 one block of four a thread; 640 and
+# 1,024 two blocks a row (the second partly live at 640); 32 threads take
+# up to 8 blocks a row, 1,024 one function a thread up to k = 1,024
 EDGE2_ROWS = (0, 1, 2, 3, 4, 5, 31, 2_047, 2_048, 2_049, 5_000)
 EDGE2_K = (1, 33, 64, 128, 256, 500, 640, 1_024)
 EDGE2_S = (1, 24, 31, 32)
@@ -465,6 +477,17 @@ DRYRUN_WORLD1 = (("wide-deep", "train_batch"), ("autoint", "train_batch"),
 DRYRUN_STEPS = 4
 ALLOC_ROUND = 512
 
+# The engine's tuning loop (phase 17): tune() over these launch shapes
+# (every instantiated output tile for packed_match), TUNE_ITERS timed runs
+# a candidate after one untimed, at the main paths' shapes: k = 500, b = 8
+# (learning), k = 200, b = 0 (phase 8's batch path), OPH k = 512, and the
+# recsys frontend's k = 64, b = 8 at 512 (serve_p99) and 65,536 rows
+# (train_batch)
+TUNE_CANDIDATES = {"minhash": [{"threads": t} for t in (32, 64, 128, 256)],
+                   "oph": [{"threads": t} for t in (64, 128, 256, 512)]}
+TUNE_ITERS = 5
+TUNE_FRONTEND_K, TUNE_FRONTEND_ROWS = 64, (512, 65_536)
+
 KERNEL_INFO = {
     "oph2u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:141"),
     "oph4u": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:178"),
@@ -629,8 +652,10 @@ def check_minhash4u_edges(torch, dev) -> int:
     nonzeros holding the indices 0, 1, 2^31 - 2 and 2^31 - 1, three rows
     also holding indices >= 2^31 as uint32 (the block-wide Horner flag),
     and coefficient columns >= p (each thread's Horner flag) next to
-    random ones < p; k = 128, b in {0, 8}, pack off and on, s in {24, 31}.
-    Returns the number of cases; raises on any difference."""
+    random ones < p; k = 128, b in {0, 8}, pack off and on, s in {24, 31},
+    at every launch shape a table may name (threads in MINHASH_THREADS;
+    pack where k is a multiple of the group).  Returns the number of
+    cases; raises on any difference."""
     import numpy as np
 
     from repro_torch.core.u32 import from_numpy
@@ -667,16 +692,21 @@ def check_minhash4u_edges(torch, dev) -> int:
         a = from_numpy(a, dev)
         for s in (S, 31):
             for b, pack in ((0, False), (B, False), (B, True)):
-                got = kmin.minhash4u_cuda(idx, cnt, a, s=s, b=b, pack=pack)
                 want = kmin.minhash4u_plain(idx, cnt, a, s=s, b=b, pack=pack)
-                pairs = zip(got, want) if pack else [(got, want)]
-                err = max(max_abs_err(g, w) for g, w in pairs)
-                if err:
-                    raise AssertionError(
-                        f"minhash4u edge chunk ({label} coefficients, s={s}, "
-                        f"b={b}, pack={pack}): kernel != plain version "
-                        f"(max |err| {err})")
-                cases += 1
+                for threads in kmin.MINHASH_THREADS:
+                    if pack and EDGE_K % kmin.pack_group(True, EDGE_K,
+                                                         threads):
+                        continue
+                    got = kmin.minhash4u_cuda(idx, cnt, a, s=s, b=b,
+                                              pack=pack, threads=threads)
+                    pairs = zip(got, want) if pack else [(got, want)]
+                    err = max(max_abs_err(g, w) for g, w in pairs)
+                    if err:
+                        raise AssertionError(
+                            f"minhash4u edge chunk ({label} coefficients, "
+                            f"s={s}, b={b}, pack={pack}, threads={threads}):"
+                            f" kernel != plain version (max |err| {err})")
+                    cases += 1
     return cases
 
 
@@ -694,9 +724,10 @@ def check_minhash2u_edges(torch, dev) -> int:
     whose a1 + a2 t wraps to 0xFFFFFFFF and to 0 under the first and last
     columns, a row of counts -3 and one of counts > nnz (data in every
     lane), coefficient columns (0, 1) and (2^32 - 1, 2^32 - 1); k in
-    EDGE2_K, s in EDGE2_S, b in EDGE2_B, variants high and low, pack on
-    where k is a multiple of 128 and b = 8.  Returns the number of cases;
-    raises on any difference."""
+    EDGE2_K, s in EDGE2_S, b in EDGE2_B, variants high and low, each at
+    every launch shape a table may name (threads in MINHASH_THREADS),
+    packed too where b = 8 and k is a multiple of the launch's group.
+    Returns the number of cases; raises on any difference."""
     import numpy as np
 
     from repro_torch.core.u32 import from_numpy
@@ -729,23 +760,29 @@ def check_minhash2u_edges(torch, dev) -> int:
         idx = from_numpy(idx, dev)
         cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
         coef = (from_numpy(a1, dev), from_numpy(a2, dev))
+        packable = [t for t in kmin.MINHASH_THREADS
+                    if k % kmin.pack_group(False, k, t) == 0]
         for s in EDGE2_S:
             for b in EDGE2_B:
-                packs = ((False, True) if k % kmin.MINHASH_BLK_K == 0
-                         and b == B else (False,))
+                packs = (False, True) if packable and b == B else (False,)
                 for variant in ("high", "low"):
                     for pack in packs:
                         kw = dict(s=s, b=b, variant=variant, pack=pack)
-                        got = kmin.minhash2u_cuda(idx, cnt, *coef, **kw)
-                        want = kmin.minhash2u_plain(idx, cnt, *coef, **kw)
-                        pairs = zip(got, want) if pack else [(got, want)]
-                        err = max(max_abs_err(g, w) for g, w in pairs)
-                        if err:
-                            raise AssertionError(
-                                f"minhash2u edge chunk (k={k}, s={s}, b={b},"
-                                f" {variant}, pack={pack}): kernel != plain "
-                                f"version (max |err| {err})")
-                        cases += 1
+                        shapes = packable if pack else kmin.MINHASH_THREADS
+                        want = kmin.minhash2u_plain(idx, cnt, *coef, **kw,
+                                                    threads=shapes[0])
+                        for threads in shapes:
+                            got = kmin.minhash2u_cuda(idx, cnt, *coef, **kw,
+                                                      threads=threads)
+                            pairs = zip(got, want) if pack else [(got, want)]
+                            err = max(max_abs_err(g, w) for g, w in pairs)
+                            if err:
+                                raise AssertionError(
+                                    f"minhash2u edge chunk (k={k}, s={s}, "
+                                    f"b={b}, {variant}, pack={pack}, threads="
+                                    f"{threads}): kernel != plain version "
+                                    f"(max |err| {err})")
+                            cases += 1
     return cases
 
 
@@ -755,8 +792,10 @@ def check_oph_edges(torch, dev) -> int:
     rows start at every 4-byte offset of a 16-byte word, and 20,003
     lanes: several rounds of loads), with the batch at the allocation's
     base and one element past it (an unaligned base); counts 0 to nnz,
-    -1 and past nnz; bin_bits in {0, 9}, code_b in {0, 8}, s = 24.
-    Returns the number of cases; raises on any difference."""
+    -1 and past nnz; bin_bits in {0, 9}, code_b in {0, 8}, s = 24; each
+    at every launch shape a table may name (threads in
+    OPH_THREAD_CHOICES; 4U runs half as many).  Returns the number of
+    cases; raises on any difference."""
     import numpy as np
 
     from repro_torch.core.u32 import from_numpy
@@ -792,15 +831,17 @@ def check_oph_edges(torch, dev) -> int:
                 for code_b in (0, B):
                     for label, cuda, plain, coef, kw in kinds:
                         kw = dict(kw, s=S, bin_bits=bin_bits, code_b=code_b)
-                        err = max_abs_err(cuda(idx, cnt, *coef, **kw),
-                                          plain(idx, cnt, *coef, **kw))
-                        if err:
-                            raise AssertionError(
-                                f"{label} edge chunk (nnz={nnz}, offset "
-                                f"{off}, bin_bits={bin_bits}, code_b="
-                                f"{code_b}): kernel != plain version "
-                                f"(max |err| {err})")
-                        cases += 1
+                        want = plain(idx, cnt, *coef, **kw)
+                        for threads in koph.OPH_THREAD_CHOICES:
+                            err = max_abs_err(cuda(idx, cnt, *coef, **kw,
+                                                   threads=threads), want)
+                            if err:
+                                raise AssertionError(
+                                    f"{label} edge chunk (nnz={nnz}, offset "
+                                    f"{off}, bin_bits={bin_bits}, code_b="
+                                    f"{code_b}, threads={threads}): kernel "
+                                    f"!= plain version (max |err| {err})")
+                            cases += 1
     return cases
 
 
@@ -866,8 +907,9 @@ def check_match_odd_shapes(torch, dev) -> int:
     tile nothing: Q in {1, 257} x N in {1, 4,097} at k = 503, b = 8 (W =
     126, last word partial, rows not 16-byte aligned: 4-byte staging), the
     same at k = 512 (16-byte staging), both on a sentinel wire, and every
-    other code width that divides 32.
-    Returns the number of cases; raises on any difference."""
+    other code width that divides 32; each at every output tile the build
+    has for its kernel (``HAMMING_TILES``).  Returns the number of cases;
+    raises on any difference."""
     import numpy as np
 
     from repro_torch.core.bbit import pack_codes
@@ -889,21 +931,28 @@ def check_match_odd_shapes(torch, dev) -> int:
             c[rng.random((n, k)) < 0.3] = 1 << (cb - 1)
         return c
 
+    n = 0
     for nq, nc, k, cb, sent in cases:
         q, c = codes(nq, k, cb, sent), codes(nc, k, cb, sent)
         c[:min(nq, nc)] = q[:min(nq, nc)]          # exact self-matches
         qw = pack_codes(from_numpy(q, dev), cb)
         cw = pack_codes(from_numpy(c, dev), cb)
-        got = kham.packed_match_cuda(qw, cw, k=k, code_bits=cb, sentinel=sent)
         want = kham.packed_match_plain(qw, cw, k=k, code_bits=cb,
                                        sentinel=sent)
-        pairs = zip(got, want) if sent else [(got, want)]
-        err = max(max_abs_err(g, w) for g, w in pairs)
-        if err:
-            raise AssertionError(
-                f"packed_match Q={nq} N={nc} k={k} code_bits={cb} "
-                f"sentinel={sent}: kernel != plain version (max |err| {err})")
-    return len(cases)
+        for blk_q, blk_n in kham.HAMMING_TILES[kham.tile_kernel(cb)]:
+            got = kham.packed_match_cuda(qw, cw, k=k, code_bits=cb,
+                                         sentinel=sent,
+                                         blocks={"blk_q": blk_q,
+                                                 "blk_n": blk_n})
+            pairs = zip(got, want) if sent else [(got, want)]
+            err = max(max_abs_err(g, w) for g, w in pairs)
+            if err:
+                raise AssertionError(
+                    f"packed_match Q={nq} N={nc} k={k} code_bits={cb} "
+                    f"sentinel={sent} tile {blk_q}x{blk_n}: kernel != plain "
+                    f"version (max |err| {err})")
+            n += 1
+    return n
 
 
 def main() -> int:
@@ -1023,11 +1072,14 @@ def run(torch) -> int:
             f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.1f} ms (1 call), "
             f"bit-exact on all {n} rows, launches {wrappers[name].launches}")
         if main:
+            threads = (koph.OPH_THREADS if name.startswith("oph")
+                       else kmin.MINHASH_BLK_K)
             rows[name] = dict(name=name, route="cuda",
                               source=KERNEL_INFO[name][0],
                               replaces=KERNEL_INFO[name][1], launches=0,
                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                              shape={"threads": threads})
         return want
 
     bin_bits = K_OPH.bit_length() - 1
@@ -1058,7 +1110,8 @@ def run(torch) -> int:
             coef = (fam.a1, fam.a2) if name == "minhash2u" else (fam.a,)
             cuda_fn = getattr(kmin, f"{name}_cuda")
             plain_fn = getattr(kmin, f"{name}_plain")
-            packs = (False, True) if k % kmin.MINHASH_BLK_K == 0 else (False,)
+            group = kmin.pack_group(four_u, k, kmin.MINHASH_BLK_K)
+            packs = (False, True) if k % group == 0 else (False,)
             for pack in packs:
                 plain_out[(name, k, pack)] = check(
                     f"{name} k={k} s={S} b={B} pack={pack}", name,
@@ -1070,16 +1123,19 @@ def run(torch) -> int:
     n_edge = check_minhash4u_edges(torch, dev)
     log(f"[kernel] minhash4u edge chunk: k={EDGE_K}, rows of {EDGE_ROWS[0]} "
         f"to {EDGE_ROWS[-1]} nonzeros with indices {EDGE_T} and >= 2^31, "
-        f"coefficients < p and >= p: bit-exact in all {n_edge} cases")
+        f"coefficients < p and >= p, threads 32 to 1024 by 32: bit-exact in "
+        f"all {n_edge} cases")
     n_edge = check_minhash2u_edges(torch, dev)
     log(f"[kernel] minhash2u edge chunk: rows of {EDGE2_ROWS} nonzeros, "
         f"counts < 0 and > nnz, a1 + a2 t wrapping to 0xFFFFFFFF and 0, k in "
         f"{EDGE2_K}, s in {EDGE2_S}, b in {EDGE2_B}, variants high and low, "
-        f"pack where k % 128 == 0: bit-exact in all {n_edge} cases")
+        f"threads 32 to 1024 by 32, pack where k is a multiple of the "
+        f"launch's group: bit-exact in all {n_edge} cases")
     n_edge = check_oph_edges(torch, dev)
     log(f"[kernel] oph2u / oph4u edge chunk: nnz in {OPH_EDGE_NNZ}, aligned "
         f"and unaligned base, counts 0 to nnz, < 0 and > nnz, bin_bits in "
-        f"(0, 9), code_b in (0, {B}): bit-exact in all {n_edge} cases")
+        f"(0, 9), code_b in (0, {B}), threads 64 to 1024 by 64: bit-exact in "
+        f"all {n_edge} cases")
     sig_edges = check_sigbag_edges(torch, dev)
     log(f"[kernel] sigbag edge set: k in (1, 33, 36, 64, 65, 128, 500), 2^b "
         f"in (16, 256, 1024), d in (1, 8, 31, 32, 33, 64, 128), rows not a "
@@ -1242,6 +1298,11 @@ def run(torch) -> int:
     # -- phase 16: the multi-pod dry run, its bytes on the card at world 1
     for name, n_launch in dryrun_check(torch, dev).items():
         rows[name]["launches"] += n_launch
+
+    # -- phase 17: the engine's tuning loop, the table steering fresh paths
+    for name, n_launch in tuning(torch, dev, chunk, fams, plain_out,
+                                 served).items():
+        rows[name]["launches"] += n_launch
     log(smi)               # the card beside the numbers at the output's end
     log(json.dumps({"kernels": [rows[k] for k in KERNEL_INFO]}))
     log(json.dumps({"ok": True, "device": {
@@ -1354,8 +1415,8 @@ def retrieval(torch, dev, n_docs: int) -> dict:
                              f"(max |err| {err})")
     n_odd = check_match_odd_shapes(torch, dev)
     log(f"[kernel] packed_match odd shapes: Q in (1, 257) x N in (1, 4097) "
-        f"at k=503 b={B} (W=126), sentinel and code_bits 1-32: bit-exact in "
-        f"all {n_odd} cases")
+        f"at k=503 b={B} (W=126), sentinel and code_bits 1-32, every output "
+        f"tile {kham.HAMMING_TILES}: bit-exact in all {n_odd} cases")
     # one 4,096-row launch is shorter than the wrapper's host time: its
     # device time comes from a graph of BLOCK_LOOP launches; eager launches
     # back to back, as an exact flush runs them, give the host's rate
@@ -1512,14 +1573,16 @@ def retrieval(torch, dev, n_docs: int) -> dict:
                source=KERNEL_INFO["packed_match"][0],
                replaces=KERNEL_INFO["packed_match"][1], launches=total,
                max_abs_err=max(err, err_s), ms=ms_blk, plain_ms=plain_blk,
-               bound_ms=b_blk, bound_by=by_blk, library_ms=None)
+               bound_ms=b_blk, bound_by=by_blk, library_ms=None,
+               shape=kham.default_tile(B))
     # what phase 7 serves: this corpus, its shards, and these answers
     ctx = dict(index=index, router=router, cfg=cfg,
                shard_dir=str(SMOKE_DIR / "rcv1_shards"),
                sig_paths=sig_paths["rotation"],
                exact_rows=np.stack(exact_rows), ids_exact=ids_exact,
                sc_exact=sc_exact, held=to_numpy(held_sig.data),
-               ids_lsh=ids_lsh, sc_lsh=sc_lsh, cand_lsh=cand_lsh)
+               ids_lsh=ids_lsh, sc_lsh=sc_lsh, cand_lsh=cand_lsh,
+               sent_q=to_numpy(q_sent), sent_c=to_numpy(c_sent))
     return row, ctx
 
 
@@ -1754,7 +1817,8 @@ def recsys_serving(torch, dev) -> tuple:
                        source=KERNEL_INFO["sigbag"][0],
                        replaces=KERNEL_INFO["sigbag"][1], launches=0,
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       shape=dataclasses.asdict(plan))
     row["max_abs_err"] = err
 
     # -- minhash2u at the frontend's shape ----------------------------------
@@ -5081,6 +5145,287 @@ def dryrun_check(torch, dev) -> dict:
         del shell, params, state, batch, loss
         torch.cuda.empty_cache()
     log(f"[dryrun] {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tuning(torch, dev, chunk, fams, plain_out: dict, ctx: dict) -> dict:
+    """Phase 17: the engine's tuning loop at the shapes the main paths
+    launch.  ``tune()`` runs over TUNE_CANDIDATES of each case (every
+    instantiated output tile for ``packed_match``) into a fresh table, and
+    each candidate is also timed on the device (a CUDA graph of
+    KERNEL_LOOP launches, or CUDA events around one), beside the default
+    shape and the bound, and held bit-exact against the plain version.
+    The table goes to ``build/smoke/`` (printed, never into the package);
+    loaded back, it steers fresh ``SignatureEngine``s, ``packed_match``
+    and an ``IndexSearcher`` over phase 5's index (exact, streamed and LSH
+    flushes == phase 5's answers), and a launch shape the build lacks
+    raises.  ``chunk`` / ``fams`` are phase 2's; ``plain_out`` its plain
+    outputs (the plain versions run here for any key it lacks); ``ctx``
+    phase 5's.  Returns the launches of those fresh paths by kernel."""
+    import numpy as np
+
+    from repro_torch.core.u32 import from_numpy
+    from repro_torch.data.sparse import SparseBatch
+    from repro_torch.index import IndexSearcher
+    from repro_torch.kernels import (SignatureEngine, TuningTable, build,
+                                     default_tuning_table, tune)
+    from repro_torch.kernels import hamming as kham
+    from repro_torch.kernels import minhash as kmin
+    from repro_torch.kernels import oph as koph
+    from repro_torch.kernels.engine import (DEFAULT_BLOCKS, TABLE_ENV,
+                                            oph_epilogue)
+    from repro_torch.kernels.pack import PackSpec, pack_device
+    from repro_torch.train.online import make_family
+
+    t_phase = time.perf_counter()
+    wrappers = {"oph2u": koph.oph2u_cuda, "oph4u": koph.oph4u_cuda,
+                "minhash2u": kmin.minhash2u_cuda,
+                "minhash4u": kmin.minhash4u_cuda,
+                "packed_match": kham.packed_match_cuda}
+    gen = torch.Generator().manual_seed(SEED + 61)
+    rng = np.random.default_rng(SEED + 62)
+
+    def frontend_batch(n):
+        """n rows of the recsys frontend's sets: nnz 128, 1 to 128 ids of
+        [0, 2^24) a row."""
+        ids = from_numpy(rng.integers(0, 2**S, (n, 128)), dev)
+        counts = torch.from_numpy(rng.integers(1, 129, n)).to(dev)
+        return SparseBatch(ids, torch.arange(128, device=dev) < counts[:, None])
+
+    def want(key, fn):
+        if key not in plain_out:
+            plain_out[key] = fn()
+        return plain_out[key]
+
+    # (label, engine, batch, kernel(blocks), plain output, engine's output
+    # from it, timing, bound)
+    cases = []
+    frontend = make_family("2u", TUNE_FRONTEND_K, S, generator=gen,
+                           device=dev)
+    minhash = [("minhash2u", fams[("minhash2u", K_PAPER)], B, True, chunk),
+               ("minhash4u", fams[("minhash4u", K_PAPER)], B, True, chunk),
+               ("minhash2u", make_family("2u", K_BATCH, S, generator=gen,
+                                         device=dev), 0, False, chunk),
+               ("minhash4u", make_family("4u", K_BATCH, S, generator=gen,
+                                         device=dev), 0, False, chunk)]
+    minhash += [("minhash2u", frontend, B, False, frontend_batch(n))
+                for n in TUNE_FRONTEND_ROWS]
+    for name, fam, b, packed, batch in minhash:
+        four_u = name == "minhash4u"
+        idx, cnt = batch.indices, batch.nnz_per_row()
+        coef = (fam.a,) if four_u else (fam.a1, fam.a2)
+        cuda = getattr(kmin, f"{name}_cuda")
+        plain = getattr(kmin, f"{name}_plain")
+        raw = want((name, fam.k, False) if b == B and batch is chunk else
+                   (name, fam.k, b, idx.shape[0]),
+                   lambda: plain(idx, cnt, *coef, s=S, b=b))
+        nnz = int(cnt.sum())
+        cases.append((
+            f"{name} k={fam.k} b={b} n={idx.shape[0]}",
+            SignatureEngine(fam, b=b, packed=packed), batch,
+            TUNE_CANDIDATES["minhash"],
+            lambda blocks, cuda=cuda, idx=idx, cnt=cnt, coef=coef, b=b:
+                cuda(idx, cnt, *coef, s=S, b=b, **blocks),
+            raw, pack_device(raw, PackSpec(fam.k, b)) if packed else raw,
+            "events" if four_u else "graph",
+            bound(minhash_bytes(nnz, idx.shape[0], fam.k, four_u),
+                  minhash_ops(nnz, idx.shape[0], fam.k, four_u, b, False))))
+    idx, cnt = chunk.indices, chunk.nnz_per_row()
+    n, nnz = idx.shape[0], int(cnt.sum())
+    bin_bits = K_OPH.bit_length() - 1
+    for name in ("oph2u", "oph4u"):
+        fam = fams[name]
+        four_u = name == "oph4u"
+        coef = (fam.base.a,) if four_u else (fam.base.a1, fam.base.a2)
+        cuda = getattr(koph, f"{name}_cuda")
+        plain = getattr(koph, f"{name}_plain")
+        raw = want((name, 0), lambda: plain(idx, cnt, *coef, s=S,
+                                            bin_bits=bin_bits))
+        cases.append((
+            f"{name} k={K_OPH} n={n}", SignatureEngine(fam, b=B, packed=True),
+            chunk, TUNE_CANDIDATES["oph"],
+            lambda blocks, cuda=cuda, coef=coef: cuda(
+                idx, cnt, *coef, s=S, bin_bits=bin_bits, **blocks),
+            raw, oph_epilogue(raw, k=K_OPH, s=S, bin_bits=bin_bits,
+                              densify="rotation", b=B, packed=True),
+            "graph", bound(oph_bytes(nnz, n, K_OPH, four_u),
+                           oph_ops(nnz, n, K_OPH, four_u, 0))))
+    index = ctx["index"]
+    wires = [("exact flush", index.spec,
+              from_numpy(ctx["exact_rows"], dev), index.corpus[:BLOCK],
+              "graph"),
+             ("sentinel", PackSpec(K_IDX, B, sentinel=True),
+              from_numpy(ctx["sent_q"], dev), from_numpy(ctx["sent_c"], dev),
+              "events")]
+    for label, spec, q, c, how in wires:
+        kw = dict(k=spec.k, code_bits=spec.code_bits, sentinel=spec.sentinel)
+        raw = kham.packed_match_plain(q, c, **kw)
+        tiles = [{"blk_q": tq, "blk_n": tn} for tq, tn in
+                 kham.HAMMING_TILES[kham.tile_kernel(spec.code_bits)]]
+        cases.append((
+            f"packed_match {label} Q={q.shape[0]} N={c.shape[0]} "
+            f"W={spec.words}", spec, (q, c), tiles,
+            lambda blocks, q=q, c=c, kw=kw: kham.packed_match_cuda(
+                q, c, blocks=blocks, **kw),
+            raw, raw, how,
+            bound(match_bytes(q.shape[0], c.shape[0], spec.words,
+                              spec.sentinel),
+                  match_ops(q.shape[0], c.shape[0], spec.k, spec.code_bits,
+                            spec.sentinel))))
+
+    # -- tune() and every candidate on the device ---------------------------
+    table = TuningTable()
+    for label, eng, batch, cands, kernel, raw, _, how, (b_ms, b_by) in cases:
+        best = tune(eng, batch, cands, iters=TUNE_ITERS, table=table)
+        times = {}
+        for blocks in cands:
+            got = kernel(blocks)
+            pairs = (zip(got, raw) if isinstance(got, tuple)
+                     else [(got, raw)])
+            err = max(max_abs_err(g, w) for g, w in pairs)
+            if err:
+                raise AssertionError(f"{label} {blocks}: kernel != plain "
+                                     f"version (max |err| {err})")
+            times[str(blocks)] = (
+                graph_ms(lambda: kernel(blocks), torch, KERNEL_LOOP)
+                if how == "graph" else median_ms(lambda: kernel(blocks),
+                                                 torch))
+        default = str(kham.default_tile(eng.code_bits)
+                      if isinstance(eng, PackSpec)
+                      else DEFAULT_BLOCKS[eng.scheme])
+        how_txt = (f"median of {REPS} replays of a CUDA graph of "
+                   f"{KERNEL_LOOP} launches" if how == "graph" else
+                   f"median of {REPS}, CUDA events around one launch")
+        for blocks in cands:
+            ms = times[str(blocks)]
+            log(f"[tune] {label} {blocks}: {ms:.4f} ms ({how_txt}), default "
+                f"{default} {times[default]:.4f} ms ({ms / times[default]:.3f}"
+                f"x), bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%}); "
+                f"bit-exact")
+        fastest = min(times, key=times.get)
+        log(f"[tune] {label}: tune() winner {best} (host clock, mean of "
+            f"{TUNE_ITERS} runs after one untimed); fastest on the device "
+            f"{fastest} {times[fastest]:.4f} ms vs default "
+            f"{times[default]:.4f} ms")
+
+    # -- the table: saved, loaded back, steering fresh paths ----------------
+    path = SMOKE_DIR / "tuning_table.json"
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    table.save(str(path))
+    loaded = TuningTable.load(str(path))
+    if loaded.entries != table.entries or any(
+            not key.startswith("cuda/") for key in loaded.entries):
+        raise AssertionError(f"tuning table round trip: {loaded.entries}")
+    log(f"[tune] table {path.relative_to(ROOT)} ({len(loaded.entries)} "
+        f"entries): {json.dumps(loaded.entries, sort_keys=True)}")
+    # cases of one key (the frontend's two batch sizes: k and the nnz
+    # bucket agree) share the entry of the one tuned last
+    for w in wrappers.values():
+        w.launches = 0
+    for label, eng, batch, _, _, _, ref, _, _ in cases:
+        if isinstance(eng, PackSpec):
+            q, c = batch
+            tile = kham.resolve_tile(eng, dev, tuning=loaded)
+            entry = loaded.lookup("cuda", "hamming", eng.k, eng.words)
+            if tile != entry:
+                raise AssertionError(f"{label}: the table resolves {tile}, "
+                                     f"its entry is {entry}")
+            got = kham.packed_match(q, c, eng, tuning=loaded)
+        else:
+            fresh = SignatureEngine(eng.family_obj, b=eng.b,
+                                    packed=eng.packed, tuning=loaded)
+            nnz = batch.indices.shape[1]
+            entry = loaded.lookup("cuda", eng.scheme, eng.statics["k"], nnz)
+            if fresh.plan_for(nnz).blocks != entry:
+                raise AssertionError(f"{label}: a fresh engine plans "
+                                     f"{fresh.plan_for(nnz).blocks}, the "
+                                     f"table's entry is {entry}")
+            got = fresh(batch)
+            got = got.data if eng.packed else got
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        if max(max_abs_err(g, w) for g, w in pairs):
+            raise AssertionError(f"{label}: the tuned path != plain version")
+    rows = {"exact": list(ctx["exact_rows"]), "lsh": list(ctx["held"])}
+    answers = {"exact": (ctx["ids_exact"], ctx["sc_exact"]),
+               "lsh": (ctx["ids_lsh"], ctx["sc_lsh"])}
+    tile = kham.resolve_tile(index.spec, dev, tuning=loaded)
+    for kind, extra in (("in core", {}),
+                        ("streamed", {"max_device_bytes": STREAM_WINDOW})):
+        searcher = IndexSearcher(index, device=dev, corpus_block=BLOCK,
+                                 blocks=tile, **extra)
+        for mode in ("exact", "lsh") if not extra else ("exact",):
+            for r in rows[mode]:
+                searcher.submit(r)
+            out = searcher.flush(TOPK, mode=mode)
+            res = [out[t] for t in sorted(out)]
+            ids = np.concatenate([r.indices for r in res])
+            sc = np.concatenate([r.scores for r in res])
+            if not (np.array_equal(ids, answers[mode][0])
+                    and np.array_equal(sc, answers[mode][1])):
+                raise AssertionError(f"IndexSearcher(blocks={tile}) {kind} "
+                                     f"{mode} flush != phase 5's answers")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    # the process-wide table (the packaged one unless $REPRO_TORCH_TUNING_
+    # TABLE names another): what a default engine plans for each case
+    shipped = default_tuning_table()
+    agree = []
+    for label, eng, batch, *_ in cases:
+        if isinstance(eng, PackSpec):
+            plans = kham.resolve_tile(eng, dev)
+            entry = loaded.lookup("cuda", "hamming", eng.k, eng.words)
+        else:
+            nnz = batch.indices.shape[1]
+            plans = SignatureEngine(eng.family_obj, b=eng.b).blocks_for(nnz)
+            entry = loaded.lookup("cuda", eng.scheme, eng.statics["k"], nnz)
+        agree.append(f"{label}: {plans}"
+                     + ("" if plans == entry else f" (this run: {entry})"))
+    log(f"[tune] default_tuning_table() holds {len(shipped.entries)} entries "
+        f"({os.environ.get(TABLE_ENV) or 'the packaged table'}); a default "
+        f"engine plans " + "; ".join(agree))
+    log(f"[tune] the loaded table steers fresh engines, packed_match and "
+        f"IndexSearcher(blocks={tile}) (exact, streamed and LSH flushes == "
+        f"phase 5's answers): launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a tuned path never launched: {launches}")
+
+    # -- a launch shape the build lacks raises, in Python and in C ----------
+    q, c = from_numpy(ctx["exact_rows"], dev), index.corpus[:BLOCK]
+    fam2, base2 = fams[("minhash2u", K_PAPER)], fams["oph2u"].base
+    bad = TuningTable()
+    bad.record("cuda", "oph2u", K_OPH, idx.shape[1], {"threads": 96})
+    refused = []
+    for what, call in (
+            ("minhash2u threads=2048", lambda: kmin.minhash2u_cuda(
+                idx, cnt, fam2.a1, fam2.a2, s=S, threads=2048)),
+            ("oph2u threads=96", lambda: koph.oph2u_cuda(
+                idx, cnt, base2.a1, base2.a2, s=S, bin_bits=bin_bits,
+                threads=96)),
+            ("packed_match tile 16x16", lambda: kham.packed_match(
+                q, c, index.spec, blocks={"blk_q": 16, "blk_n": 16})),
+            ("a table entry oph2u {'threads': 96}", lambda: SignatureEngine(
+                fams["oph2u"], b=B, packed=True, tuning=bad)(chunk))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+            continue
+        raise AssertionError(f"{what} did not raise")
+    matches = torch.empty((q.shape[0], c.shape[0]), dtype=torch.int32,
+                          device=dev)
+    hi, lo = kham._field_masks(B)
+    with torch.cuda.device(dev):
+        status = build.library("hamming").packed_match_tiled_launch(
+            q.data_ptr(), c.data_ptr(), q.shape[0], c.shape[0],
+            index.spec.words, K_IDX, B, 0, hi, lo,
+            kham._last_word_mask(K_IDX, B), 16, 16, matches.data_ptr(), None,
+            build.stream_handle(dev))
+    if status != 1:                                 # cudaErrorInvalidValue
+        raise AssertionError(f"packed_match_tiled_launch took a 16x16 tile "
+                             f"(status {status})")
+    log(f"[tune] refused with ValueError: {'; '.join(refused)}; the C entry "
+        f"packed_match_tiled_launch returns cudaErrorInvalidValue for a "
+        f"16x16 tile")
+    log(f"[tuning] {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

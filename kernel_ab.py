@@ -10,8 +10,11 @@ parent commit, ``git archive HEAD~1 | tar -x -C build/parent``) at DIR:
 It builds ``src/repro_torch/csrc/oph.cu``, ``minhash.cu``,
 ``hamming.cu`` and ``sigbag.cu`` of both checkouts (their C interfaces
 must match: ``sigbag_cuda`` calls ``sigbag_shard_launch``, which a
-checkout older than the row-shard entry lacks) and calls each through
-THIS checkout's wrappers, swapping
+checkout older than the row-shard entry lacks, and ``packed_match_cuda``
+calls ``packed_match_tiled_launch``, which a checkout older than the
+tuning table lacks; such a parent's library still loads) and calls each
+through THIS checkout's wrappers, at their default launch shapes,
+swapping
 the loaded library, in turns parent, change, change, parent, at the main
 paths' shapes:
 
@@ -70,17 +73,17 @@ def shown(fn: str) -> bool:
     return "sigbag" not in fn or any(x in fn for x in SIGBAG_SHOWN)
 
 
-def build_tree(root: Path, out: Path, tag: str, nvcc: str, flags) -> dict:
-    """nvcc every source of ``root``'s csrc into ``out``, all at once;
-    returns {source: loaded ctypes library}, and prints ptxas's report of
-    the kernels ``shown`` picks."""
+def build_tree(root: Path, out: Path, tag: str, nvcc: str) -> dict:
+    """nvcc every source of ``root``'s csrc into ``out``, all at once, with
+    this checkout's flags; returns {source: loaded ctypes library}, and
+    prints ptxas's report of the kernels ``shown`` picks."""
     from repro_torch.kernels import build
     csrc = root / "src" / "repro_torch" / "csrc"
     procs, fn = {}, "?"
     for name in SOURCES:
         so = out / f"{tag}-lib{name}.so"
-        cmd = [nvcc, *flags, "-Xptxas", "-v", "-I", str(csrc), "-o", str(so),
-               str(csrc / f"{name}.cu")]
+        cmd = [nvcc, *build.flags(name), "-Xptxas", "-v", "-I", str(csrc),
+               "-o", str(so), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), so)
     libs = {}
@@ -148,8 +151,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libs = {tag: build_tree(root, args.out, tag, build.nvcc(),
-                            build.NVCC_FLAGS)
+    libs = {tag: build_tree(root, args.out, tag, build.nvcc())
             for tag, root in (("parent", args.parent.resolve()),
                               ("change", ROOT))}
     dev = torch.device("cuda")

@@ -47,28 +47,39 @@
 // the thread that owns it: no atomics, so the counts are deterministic
 // and bit-exact against the plain version.
 //
+// Output tiles.  Each kernel is built for a few output tiles (queries x
+// docs), listed in SWAR_TILES / STRADDLE_TILES (their first is the
+// default; repro_torch/kernels/hamming.py's HAMMING_TILES lists the same).
+// A tile keeps its kernel's thread layout, so a thread of swar_kernel
+// holds (SQ / 16) x (SN / 8) pairs and one of straddle_kernel (BQ / 16) x
+// (BN / 16), never more than the default tile's 4 x 8 and 2 x 4.  Smaller
+// tiles give a launch more blocks for the same work; each block then
+// stages more rows per pair.  On the H100 none beat the defaults at an
+// exact flush's launch or on the 9-bit sentinel wire (PERF.md, measured by
+// chip_smoke.py phase 17).  packed_match_tiled_launch takes the tile (a
+// TuningTable entry names it); packed_match_launch keeps its C signature
+// and runs the default tiles.
+//
 // Left for later work: tensor-core (one-hot) products and a fused
 // Theorem-1 debias + running top-k epilogue.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// ---- swar_kernel tiles ------------------------------------------------
-#define SQ 64                 // queries per output tile
-#define SN 64                 // docs per output tile
+// ---- swar_kernel -------------------------------------------------------
 #define SW 32                 // words staged per step
 #define SSTRIDE (SW + 4)      // row stride: 16-byte aligned, conflict-free
 #define STHREADS 128          // 16 (queries) x 8 (docs)
-#define SQPT (SQ / 16)        // queries per thread: ty + 16 a
-#define SNPT (SN / 8)         // docs per thread: tx + 8 d
+// (SQ, SN): queries and docs per output tile; a thread takes queries
+// ty + 16 a and docs tx + 8 d
+#define SWAR_TILES(X) X(64, 64) X(32, 64) X(64, 32) X(32, 32)
 
-// ---- straddle_kernel tiles --------------------------------------------
-#define BQ 32                 // queries per output tile
-#define BN 64                 // docs per output tile
+// ---- straddle_kernel ---------------------------------------------------
 #define TW 32                 // words staged per step
 #define STRIDE (TW + 1)       // + the word after the step; odd: no bank conflicts
 #define THREADS 256           // 16 x 16 threads
-#define QPT (BQ / 16)         // queries per thread
-#define NPT (BN / 16)         // docs per thread
+// (BQ, BN): queries and docs per output tile; a thread takes queries
+// ty + 16 a and docs tx + 16 d
+#define STRADDLE_TILES(X) X(32, 64) X(64, 32) X(32, 32) X(16, 64)
 
 __device__ __forceinline__ uint32_t zero_fields(uint32_t x, uint32_t hi,
                                                 uint32_t lo) {
@@ -105,13 +116,12 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-typedef uint32_t SwarTile[SQ + SN][SSTRIDE];  // query rows, then doc rows
-
 // Copy word step st (words [st*SW, st*SW + SW)) of the block's query and
-// doc rows into tile: 16-byte copies when vec (W % 4 == 0 and both
-// operands 16-byte aligned), else 4-byte ones; rows and words out of range
-// are zero-filled.
-__device__ __forceinline__ void swar_stage(SwarTile& tile,
+// doc rows into tile (query rows, then doc rows): 16-byte copies when vec
+// (W % 4 == 0 and both operands 16-byte aligned), else 4-byte ones; rows
+// and words out of range are zero-filled.
+template <int SQ, int SN>
+__device__ __forceinline__ void swar_stage(uint32_t (&tile)[SQ + SN][SSTRIDE],
                                            const uint32_t* __restrict__ q,
                                            const uint32_t* __restrict__ c,
                                            int nq, int nc, int W, int q0,
@@ -136,8 +146,10 @@ __device__ __forceinline__ void swar_stage(SwarTile& tile,
 // The last step only, by the thread that staged each word: the fields of
 // word W-1 past k never match (query bits set, doc bits cleared), nor do
 // the zero-filled words past W (query words set to all ones).
-__device__ __forceinline__ void swar_mask_tail(SwarTile& tile, int W, int st,
-                                               bool vec, uint32_t last_mask) {
+template <int SQ, int SN>
+__device__ __forceinline__ void swar_mask_tail(
+    uint32_t (&tile)[SQ + SN][SSTRIDE], int W, int st, bool vec,
+    uint32_t last_mask) {
   const int w0 = st * SW;
   const int per = vec ? SW / 4 : SW;
   for (int i = threadIdx.x; i < (SQ + SN) * per; i += STHREADS) {
@@ -153,13 +165,14 @@ __device__ __forceinline__ void swar_mask_tail(SwarTile& tile, int W, int st,
   }
 }
 
-template <int CB, bool SENTINEL>
+template <int CB, bool SENTINEL, int SQ, int SN>
 __global__ void __launch_bounds__(STHREADS)
 swar_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
             int nq, int nc, int W, uint32_t hi, uint32_t lo,
             uint32_t last_mask, int vec_copies, int32_t* __restrict__ matches,
             int32_t* __restrict__ both) {
-  __shared__ __align__(16) SwarTile tiles[2];
+  constexpr int SQPT = SQ / 16, SNPT = SN / 8;  // queries, docs a thread
+  __shared__ __align__(16) uint32_t tiles[2][SQ + SN][SSTRIDE];
   const int q0 = blockIdx.y * SQ, n0 = blockIdx.x * SN;
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
   const bool vec = vec_copies != 0;
@@ -174,17 +187,18 @@ swar_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
     for (int d = 0; d < SNPT; ++d) acc[a][d] = acce[a][d] = m[a][d] = e[a][d] = 0;
 
   const int steps = (W + SW - 1) / SW;
-  swar_stage(tiles[0], q, c, nq, nc, W, q0, n0, 0, vec);
+  swar_stage<SQ, SN>(tiles[0], q, c, nq, nc, W, q0, n0, 0, vec);
   for (int st = 0; st < steps; ++st) {
-    SwarTile& tile = tiles[st & 1];
+    uint32_t (&tile)[SQ + SN][SSTRIDE] = tiles[st & 1];
     if (st + 1 < steps) {
       // tiles[(st + 1) & 1] was last read in step st - 1, before its
       // closing __syncthreads
-      swar_stage(tiles[(st + 1) & 1], q, c, nq, nc, W, q0, n0, st + 1, vec);
+      swar_stage<SQ, SN>(tiles[(st + 1) & 1], q, c, nq, nc, W, q0, n0,
+                         st + 1, vec);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
-      swar_mask_tail(tile, W, st, vec, last_mask);
+      swar_mask_tail<SQ, SN>(tile, W, st, vec, last_mask);
     }
     __syncthreads();
 #pragma unroll 1
@@ -243,11 +257,12 @@ swar_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
     }
 }
 
-template <bool SENTINEL>
+template <bool SENTINEL, int BQ, int BN>
 __global__ void __launch_bounds__(THREADS)
 straddle_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
                 int nq, int nc, int W, int k, int cb,
                 int32_t* __restrict__ matches, int32_t* __restrict__ both) {
+  constexpr int QPT = BQ / 16, NPT = BN / 16;   // queries, docs a thread
   __shared__ uint32_t qs[BQ][STRIDE];
   __shared__ uint32_t cs[BN][STRIDE];
   const int q0 = blockIdx.y * BQ, n0 = blockIdx.x * BN;
@@ -317,68 +332,117 @@ straddle_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ c,
     }
 }
 
-template <int CB>
-static void launch_swar(bool sentinel, const void* q, const void* c, int nq,
-                        int nc, int W, uint32_t hi, uint32_t lo,
-                        uint32_t last_mask, void* matches, void* both,
-                        cudaStream_t stream) {
+template <int CB, int SQ, int SN>
+static void launch_swar_tile(bool sentinel, const void* q, const void* c,
+                             int nq, int nc, int W, uint32_t hi, uint32_t lo,
+                             uint32_t last_mask, void* matches, void* both,
+                             cudaStream_t stream) {
   const dim3 grid((nc + SN - 1) / SN, (nq + SQ - 1) / SQ);
   const int vec = W % 4 == 0 && (((uintptr_t)q | (uintptr_t)c) & 15) == 0;
   if constexpr (CB >= 2) {  // 1-bit codes have no sentinel wire
     if (sentinel) {
-      swar_kernel<CB, true><<<grid, STHREADS, 0, stream>>>(
+      swar_kernel<CB, true, SQ, SN><<<grid, STHREADS, 0, stream>>>(
           (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, hi, lo,
           last_mask, vec, (int32_t*)matches, (int32_t*)both);
       return;
     }
   }
-  swar_kernel<CB, false><<<grid, STHREADS, 0, stream>>>(
+  swar_kernel<CB, false, SQ, SN><<<grid, STHREADS, 0, stream>>>(
       (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, hi, lo, last_mask,
       vec, (int32_t*)matches, (int32_t*)both);
+}
+
+// Launches the (blk_q, blk_n) tile of SWAR_TILES; false if there is none.
+template <int CB>
+static bool launch_swar(int blk_q, int blk_n, bool sentinel, const void* q,
+                        const void* c, int nq, int nc, int W, uint32_t hi,
+                        uint32_t lo, uint32_t last_mask, void* matches,
+                        void* both, cudaStream_t stream) {
+#define SWAR_CASE(TQ, TN)                                                   \
+  if (blk_q == TQ && blk_n == TN) {                                         \
+    launch_swar_tile<CB, TQ, TN>(sentinel, q, c, nq, nc, W, hi, lo,         \
+                                 last_mask, matches, both, stream);         \
+    return true;                                                            \
+  }
+  SWAR_TILES(SWAR_CASE)
+#undef SWAR_CASE
+  return false;
+}
+
+template <int BQ, int BN>
+static void launch_straddle_tile(bool sentinel, const void* q, const void* c,
+                                 int nq, int nc, int W, int k, int cb,
+                                 void* matches, void* both,
+                                 cudaStream_t stream) {
+  const dim3 grid((nc + BN - 1) / BN, (nq + BQ - 1) / BQ);
+  if (sentinel)
+    straddle_kernel<true, BQ, BN><<<grid, THREADS, 0, stream>>>(
+        (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
+        (int32_t*)matches, (int32_t*)both);
+  else
+    straddle_kernel<false, BQ, BN><<<grid, THREADS, 0, stream>>>(
+        (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
+        (int32_t*)matches, (int32_t*)both);
+}
+
+// Launches the (blk_q, blk_n) tile of STRADDLE_TILES; false if there is none.
+static bool launch_straddle(int blk_q, int blk_n, bool sentinel,
+                            const void* q, const void* c, int nq, int nc,
+                            int W, int k, int cb, void* matches, void* both,
+                            cudaStream_t stream) {
+#define STRADDLE_CASE(TQ, TN)                                               \
+  if (blk_q == TQ && blk_n == TN) {                                         \
+    launch_straddle_tile<TQ, TN>(sentinel, q, c, nq, nc, W, k, cb, matches, \
+                                 both, stream);                             \
+    return true;                                                            \
+  }
+  STRADDLE_TILES(STRADDLE_CASE)
+#undef STRADDLE_CASE
+  return false;
 }
 
 // q (nq, W) and c (nc, W) packed words; matches (nq, nc) int32; both
 // (nq, nc) int32 or null unless sentinel.  hi / lo are the per-field
 // masks of zero_fields and last_mask the valid bits of word W-1; the
-// wrapper computes them (repro_torch/kernels/hamming.py).
+// wrapper computes them (repro_torch/kernels/hamming.py).  (blk_q, blk_n)
+// is the output tile: one of SWAR_TILES when cb divides 32, else one of
+// STRADDLE_TILES; any other returns cudaErrorInvalidValue, as does a
+// sentinel wire of 1-bit codes or a code width outside [1, 32].
+extern "C" int packed_match_tiled_launch(const void* q, const void* c, int nq,
+                                         int nc, int W, int k, int cb,
+                                         int sentinel, uint32_t hi,
+                                         uint32_t lo, uint32_t last_mask,
+                                         int blk_q, int blk_n, void* matches,
+                                         void* both, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool sent = sentinel != 0;
+  if (cb < 1 || cb > 32 || (cb == 1 && sent))
+    return (int)cudaErrorInvalidValue;  // a sentinel needs code_bits >= 2
+  bool ok;
+  switch (cb) {
+#define SWAR_CB(CB)                                                         \
+    case CB:                                                                \
+      ok = launch_swar<CB>(blk_q, blk_n, sent, q, c, nq, nc, W, hi, lo,     \
+                           last_mask, matches, both, s);                    \
+      break;
+    SWAR_CB(1) SWAR_CB(2) SWAR_CB(4) SWAR_CB(8) SWAR_CB(16) SWAR_CB(32)
+#undef SWAR_CB
+    default:
+      ok = launch_straddle(blk_q, blk_n, sent, q, c, nq, nc, W, k, cb,
+                           matches, both, s);
+  }
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The default tiles' case (the first of each list), with the C signature
+// older checkouts' wrappers call.
 extern "C" int packed_match_launch(const void* q, const void* c, int nq,
                                    int nc, int W, int k, int cb, int sentinel,
                                    uint32_t hi, uint32_t lo,
                                    uint32_t last_mask, void* matches,
                                    void* both, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool sent = sentinel != 0;
-  switch (cb) {
-    case 1:
-      if (sent) return (int)cudaErrorInvalidValue;  // needs code_bits >= 2
-      launch_swar<1>(false, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    case 2:
-      launch_swar<2>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    case 4:
-      launch_swar<4>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    case 8:
-      launch_swar<8>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    case 16:
-      launch_swar<16>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    case 32:
-      launch_swar<32>(sent, q, c, nq, nc, W, hi, lo, last_mask, matches, both, s);
-      break;
-    default: {
-      const dim3 grid((nc + BN - 1) / BN, (nq + BQ - 1) / BQ);
-      if (sent)
-        straddle_kernel<true><<<grid, THREADS, 0, s>>>(
-            (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
-            (int32_t*)matches, (int32_t*)both);
-      else
-        straddle_kernel<false><<<grid, THREADS, 0, s>>>(
-            (const uint32_t*)q, (const uint32_t*)c, nq, nc, W, k, cb,
-            (int32_t*)matches, (int32_t*)both);
-    }
-  }
-  return (int)cudaGetLastError();
+  const bool swar = cb >= 1 && cb <= 32 && 32 % cb == 0;
+  return packed_match_tiled_launch(q, c, nq, nc, W, k, cb, sentinel, hi, lo,
+                                   last_mask, swar ? 64 : 32, 64, matches,
+                                   both, stream);
 }

@@ -58,7 +58,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index.banding import band_keys_packed
 from repro_torch.index.builder import SigIndex
 from repro_torch.kernels.engine import PackedSignatures
-from repro_torch.kernels.hamming import packed_match
+from repro_torch.kernels.hamming import packed_match, resolve_tile
 from repro_torch.kernels.pack import PackSpec
 from repro_torch.obs.trace import get_tracer
 
@@ -339,13 +339,18 @@ class IndexSearcher(BatchedAdmission):
     Match counts come from ``match_counts``, the packed-match dispatcher;
     a subclass may score through another function of the same contract
     (``chip_smoke.py`` scores one through the plain version on the card).
+    ``blocks`` is the kernel's output tile (``{"blk_q": q, "blk_n": n}``);
+    without it the ``TuningTable``'s ``"hamming"`` entry for the index's
+    wire, else the kernel's default.  It is resolved once, here, and every
+    launch of the exact, streamed and LSH paths takes it.
     """
 
     def __init__(self, index: SigIndex, *, device: DeviceLike = None,
                  corpus_block: int = 4096,
                  max_device_bytes: Optional[int] = None,
                  stream_prefetch: int = 2,
-                 lsh_batch: Optional[int] = None):
+                 lsh_batch: Optional[int] = None,
+                 blocks: Optional[dict] = None):
         self.device = resolve_device(device)
         if self.device.type != index.device.type:
             raise ValueError(f"index lives on {index.device}, searcher on "
@@ -362,6 +367,7 @@ class IndexSearcher(BatchedAdmission):
         if lsh_batch is not None and lsh_batch < 1:
             raise ValueError(f"lsh_batch must be >= 1, got {lsh_batch}")
         self.index = index
+        self.blocks = resolve_tile(index.spec, self.device, blocks)
         self.corpus_block = min(corpus_block, max(index.n, 1))
         self.max_device_bytes = max_device_bytes
         self.stream_prefetch = stream_prefetch
@@ -384,7 +390,8 @@ class IndexSearcher(BatchedAdmission):
                 and self.index.meta.payload_bytes > self.max_device_bytes)
 
     def match_counts(self, qwords: torch.Tensor, cwords: torch.Tensor):
-        return packed_match(qwords, cwords, self.index.spec)
+        return packed_match(qwords, cwords, self.index.spec,
+                            blocks=self.blocks)
 
     # -- scoring ---------------------------------------------------------
     def _rerank_sizes(self, q_sizes) -> Optional[torch.Tensor]:

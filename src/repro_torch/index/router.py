@@ -239,8 +239,9 @@ class ShardedIndex(BatchedAdmission):
     Mirrors the ``IndexSearcher`` API (``search`` and ``submit``/
     ``flush``) and returns global doc ids.  ``searcher_kwargs``
     (``device``, ``corpus_block``, ``max_device_bytes``, ``lsh_batch``,
-    ...) go to every per-shard searcher -- a device window applies per
-    shard.  ``max_shard_docs`` is the spill budget of ``append``;
+    ``blocks``, ...) go to every per-shard searcher -- a device window
+    applies per shard, and every shard's launches take the one tile
+    ``blocks``.  ``max_shard_docs`` is the spill budget of ``append``;
     ``client_factory`` wraps each searcher in a ``ShardClient`` (default:
     in-process); ``on_shard_failure`` is ``"fail"`` or ``"partial"``.
 

@@ -9,7 +9,8 @@
   sigbag.py   -- the Eq. (5) signature embedding-bag of the recsys
                  frontend (csrc/sigbag.cu) + plain version.
   pack.py     -- the packed b-bit wire format.
-  engine.py   -- SignaturePlan / SignatureEngine, backends, PackedSignatures.
+  engine.py   -- SignaturePlan / SignatureEngine, backends, PackedSignatures,
+                 the TuningTable of launch shapes and tune().
   build.py    -- nvcc build of csrc/*.cu and ctypes loading.
   ref.py      -- the plain versions in one place.
 
@@ -20,9 +21,10 @@ launch (or by ``build.build_all``).
 from repro_torch.kernels.engine import (BACKENDS, Backend, PackedSignatures,
                                         SignatureEngine, SignaturePlan,
                                         TuningTable, backend_for,
-                                        batch_signatures)
+                                        batch_signatures,
+                                        default_tuning_table, tune)
 from repro_torch.kernels.pack import PackSpec
 
 __all__ = ["BACKENDS", "Backend", "PackSpec", "PackedSignatures",
            "SignatureEngine", "SignaturePlan", "TuningTable", "backend_for",
-           "batch_signatures"]
+           "batch_signatures", "default_tuning_table", "tune"]

@@ -9,7 +9,9 @@ seconds, not minutes):
 
 The file name carries a hash of the sources and flags, so an edit
 rebuilds and a rerun reuses the library.  ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.  Every C entry
+``nvcc`` per source at once and waits for all of them; ``hamming.cu``,
+whose output tiles are instantiated several times over, also splits its
+own compilation across the host's cores (``EXTRA_FLAGS``).  Every C entry
 returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
 Nothing here runs at import time.
 """
@@ -34,6 +36,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("oph", "minhash", "hamming", "sigbag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# per source, after NVCC_FLAGS: hamming.cu instantiates 52 kernels (11
+# code-width variants of swar_kernel and 2 of straddle_kernel, 4 output
+# tiles each), so nvcc splits their optimisation over the host's cores
+EXTRA_FLAGS = {"hamming": ("--split-compile=0",)}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +64,8 @@ SIGNATURES = {
     "hamming": {
         "packed_match_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U,
                                 _P, _P, _P],
+        "packed_match_tiled_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
+                                      _U, _I, _I, _P, _P, _P],
     },
     "sigbag": {
         "sigbag_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -74,7 +87,7 @@ def nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -100,7 +113,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc(), *flags(name), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)

@@ -4,12 +4,18 @@ format (port of ``repro.kernels.engine``).
   * ``Backend`` / ``BACKENDS`` -- ``cuda`` runs the hand-written kernels on
     CUDA tensors; ``torch`` runs their plain versions on CPU tensors.  A
     backend never runs on the other device: no silent fallback.
-  * ``TuningTable`` -- launch parameters keyed on (backend, scheme, k,
-    nnz bucket).  It is empty: ``tune()`` is the one function of the
-    reference's modules still to port (see ``TuningTable``).
+  * ``TuningTable`` -- launch shapes keyed on (backend, scheme, k, nnz
+    bucket), saved as JSON in the reference's schema;
+    ``default_tuning_table()`` is the process-wide one
+    (``$REPRO_TORCH_TUNING_TABLE``, else the packaged
+    ``tuning_table.json``, else empty).
+  * ``tune()`` -- times candidate launch shapes of one engine on one batch
+    (or of ``packed_match`` on one pair of packed operands) and records
+    the fastest in a table.
   * ``SignaturePlan`` / ``SignatureEngine`` -- a frozen description of one
-    signature computation and its execution through the ``_RUNNERS``
-    registry over (minhash | oph) x (2u | 4u | perm).
+    signature computation, its launch shape included, and its execution
+    through the ``_RUNNERS`` registry over (minhash | oph) x (2u | 4u |
+    perm).
   * ``PackedSignatures`` -- k*code_bits bits per example; sentinel OPH
     packs (b+1)-bit codes with EMPTY as 2^b.
 
@@ -21,6 +27,11 @@ nnz and k to its tiles is gone: kernels take the batch as it is.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
+import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
@@ -65,27 +76,62 @@ def backend_for(device: torch.device) -> Backend:
 
 
 # ---------------------------------------------------------------------------
-# Launch-parameter tuning table
+# Launch shapes and the tuning table
 # ---------------------------------------------------------------------------
+
+# The default launch shape of each kernel the engine runs, by its table
+# scheme: the kernels' module constants.  A shape names the card's launch
+# parameter -- the group size of ``minhash.cu``, the block size of
+# ``oph.cu`` -- not the TPU's tiles (``blk_n`` / ``blk_t`` / ``blk_k``).
+# ``packed_match``'s ``"hamming"`` tiles live in ``kernels/hamming.py``.
+DEFAULT_BLOCKS = {
+    "minhash2u": {"threads": kmin.MINHASH_BLK_K},
+    "minhash4u": {"threads": kmin.MINHASH_BLK_K},
+    "oph2u": {"threads": koph.OPH_THREADS},
+    "oph4u": {"threads": koph.OPH_THREADS},
+}
+TABLE_ENV = "REPRO_TORCH_TUNING_TABLE"
+PACKAGED_TABLE = Path(__file__).with_name("tuning_table.json")
+
 
 def nnz_bucket(nnz: int) -> int:
     """Bucket a padded nnz width to the next power of two (>= 128)."""
     return max(128, 1 << max(0, int(nnz) - 1).bit_length())
 
 
-class TuningTable:
-    """Launch parameters keyed on (backend, scheme, k, nnz bucket), as in
-    the reference.  It is empty: the reference's entries were measured on
-    a TPU, and ``tune()``, which would fill it for the card, is not ported
-    yet -- the roofline and the dry run it would sit beside are -- so
-    every lookup misses and the kernels run with their module constants
-    (``MINHASH_BLK_K``, ``OPH_THREADS``).  The ``minhash`` and ``oph``
-    launchers already take their block shape as an argument; the
-    ``"hamming"`` scheme's tiles are fixed when ``csrc/hamming.cu`` is
-    compiled, so tuning it needs more instantiations of that kernel."""
+def check_blocks(scheme: str, blocks: dict) -> int:
+    """The ``threads`` of a launch shape for ``scheme``'s kernel; raise
+    ``ValueError`` on any other key or on a value the launcher refuses."""
+    if not isinstance(blocks, dict) or set(blocks) != {"threads"}:
+        raise ValueError(f"{scheme}: a launch shape is {{'threads': t}}, "
+                         f"got {blocks!r}")
+    check = (kmin.check_threads if scheme.startswith("minhash")
+             else koph.check_threads)
+    return check(scheme, blocks["threads"])
 
-    def __init__(self):
-        self.entries: Dict[str, dict] = {}
+
+class TuningTable:
+    """Launch shapes keyed on (backend, scheme, k, nnz bucket), in the
+    reference's JSON schema (``{"version": 1, "entries": {...}}``, keys
+    ``"{backend}/{scheme}/k={k}/nnz<={bucket}"``): given the same entries
+    both packages write the same bytes and each loads the other's.
+
+    ``tune()`` fills it on the card; every engine then picks its entries
+    up through ``lookup``, and a key it lacks falls back to the default
+    shape.  Backends are the port's (``cuda``, ``torch``), so no entry of
+    the reference's ``tpu`` / ``interpret`` backends can match.  Schemes
+    are the kernels' names (``minhash2u``, ``minhash4u``, ``oph2u``,
+    ``oph4u``): the reference keys 2U and 4U alike (``minhash``, ``oph``),
+    but on the card they are two kernels, each with its own launch rule
+    (2U cuts its block to k rounded up to 32, 4U does not; OPH 4U runs
+    half the threads), so one shape need not suit both.
+    ``"hamming"`` (``kernels/hamming.py`` ``packed_match``) is keyed on
+    the packed word count instead of nnz, as in the reference."""
+
+    def __init__(self, entries: Optional[dict] = None,
+                 path: Optional[str] = None):
+        self.entries: Dict[str, dict] = dict(entries or {})
+        self.path = path
 
     @staticmethod
     def key(backend: str, scheme: str, k: int, bucket: int) -> str:
@@ -94,6 +140,48 @@ class TuningTable:
     def lookup(self, backend: str, scheme: str, k: int,
                nnz: int) -> Optional[dict]:
         return self.entries.get(self.key(backend, scheme, k, nnz_bucket(nnz)))
+
+    def record(self, backend: str, scheme: str, k: int, nnz: int,
+               blocks: dict) -> None:
+        self.entries[self.key(backend, scheme, k, nnz_bucket(nnz))] = \
+            dict(blocks)
+
+    def save(self, path: Optional[str] = None) -> str:
+        path = path or self.path
+        if not path:
+            raise ValueError("no path given and table has none")
+        with open(path, "w") as f:
+            json.dump({"version": 1, "entries": self.entries}, f, indent=2,
+                      sort_keys=True)
+        self.path = path
+        return path
+
+    @staticmethod
+    def load(path: str) -> "TuningTable":
+        with open(path) as f:
+            doc = json.load(f)
+        return TuningTable(doc.get("entries", {}), path=path)
+
+
+_DEFAULT_TABLE: Optional[TuningTable] = None
+
+
+def default_tuning_table() -> TuningTable:
+    """The process-wide table, loaded once: ``$REPRO_TORCH_TUNING_TABLE``
+    if set (a missing file raises), else the packaged
+    ``tuning_table.json`` if there is one, else an empty table.  The
+    variable is the port's own, so a table set for the reference
+    (``$REPRO_TUNING_TABLE``) never loads here."""
+    global _DEFAULT_TABLE
+    if _DEFAULT_TABLE is None:
+        path = os.environ.get(TABLE_ENV)
+        if path:
+            _DEFAULT_TABLE = TuningTable.load(path)
+        elif PACKAGED_TABLE.exists():
+            _DEFAULT_TABLE = TuningTable.load(str(PACKAGED_TABLE))
+        else:
+            _DEFAULT_TABLE = TuningTable()
+    return _DEFAULT_TABLE
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +240,15 @@ class SignaturePlan:
     densify: Optional[str] = None   # OPH only
     variant: str = "high"           # 2U only
     packed: bool = False
+    threads: Optional[int] = None   # the launch shape (None: no kernel)
 
     @property
     def sentinel(self) -> bool:
         return self.densify == "sentinel"
+
+    @property
+    def blocks(self) -> dict:
+        return {} if self.threads is None else {"threads": self.threads}
 
     @property
     def pack_spec(self) -> PackSpec:
@@ -194,13 +287,18 @@ class SignatureEngine:
     """Signature computation for one hash family on the family's device.
 
     The backend follows the device: ``cuda`` for a CUDA family, ``torch``
-    (the plain versions) for a CPU one.  ``signatures`` returns (n, k)
-    int32 values (b-bit masked when b > 0); ``packed_signatures`` returns
-    ``PackedSignatures``, packed in the minhash kernels' epilogue where
-    alignment allows.
+    (the plain versions) for a CPU one.  The launch shape comes from
+    ``blocks`` if given, else the ``tuning`` table's entry for (backend,
+    scheme, k, nnz bucket) (``default_tuning_table()`` when ``tuning`` is
+    None), else the kernel's default; ``plan_for`` resolves it.
+    ``signatures`` returns (n, k) int32 values (b-bit masked when b > 0);
+    ``packed_signatures`` returns ``PackedSignatures``, packed in the
+    minhash kernels' epilogue where the launch's group allows.
     """
 
-    def __init__(self, family, *, b: int = 0, packed: bool = False):
+    def __init__(self, family, *, b: int = 0, packed: bool = False,
+                 blocks: Optional[dict] = None,
+                 tuning: Optional[TuningTable] = None):
         self.family_obj = family
         self.statics = _family_statics(family)
         self.device = family.device
@@ -214,22 +312,52 @@ class SignatureEngine:
         if key not in _RUNNERS:
             raise TypeError(f"no runner for scheme/family {key}")
         self._runner = _RUNNERS[key]
-        self.plan = SignaturePlan(b=b, packed=packed, **self.statics)
+        self.scheme = "".join(key)          # the kernel: "minhash2u", ...
+        self._blocks = dict(blocks) if blocks else None
+        self._tuning = tuning
+        if self._blocks:
+            self.plan_for(0)                # an explicit shape fails here
 
+    # -- plan / launch shape --------------------------------------------
+    def blocks_for(self, nnz: int) -> dict:
+        """The launch shape for a batch ``nnz`` wide: explicit ``blocks``
+        > the table's entry > the kernel's default ({} where no kernel
+        runs: a permutation base)."""
+        if self._blocks:
+            return dict(self._blocks)
+        if self.scheme not in DEFAULT_BLOCKS:
+            return {}
+        table = self._tuning or default_tuning_table()
+        hit = table.lookup(self.backend, self.scheme, self.statics["k"], nnz)
+        return dict(hit or DEFAULT_BLOCKS[self.scheme])
+
+    def plan_for(self, nnz: int) -> SignaturePlan:
+        blocks = self.blocks_for(nnz)
+        if self.scheme not in DEFAULT_BLOCKS:
+            if blocks:
+                raise ValueError(f"{self.scheme} runs no kernel: it takes no "
+                                 f"launch shape, got {blocks!r}")
+            threads = None
+        else:
+            threads = check_blocks(self.scheme, blocks)
+        return SignaturePlan(b=self.b, packed=self.packed, threads=threads,
+                             **self.statics)
+
+    # -- execution ------------------------------------------------------
     def _run(self, batch: SparseBatch, packed: bool):
         if same_device(batch.indices, batch.mask) != self.device:
             raise ValueError(f"batch on {batch.device}, family on {self.device}")
-        return self._runner(self, batch, self.plan, packed=packed)
+        plan = self.plan_for(batch.indices.shape[1])
+        return plan, self._runner(self, batch, plan, packed=packed)
 
     def signatures(self, batch: SparseBatch) -> torch.Tensor:
         """(n, k) int32 signature values (b-bit masked when b > 0)."""
-        return self._run(batch, packed=False)
+        return self._run(batch, packed=False)[1]
 
     def packed_signatures(self, batch: SparseBatch) -> PackedSignatures:
         """The packed wire format: k*code_bits bits per example."""
-        plan = self.plan
-        return PackedSignatures(self._run(batch, packed=True), plan.k, plan.b,
-                                plan.sentinel)
+        plan, words = self._run(batch, packed=True)
+        return PackedSignatures(words, plan.k, plan.b, plan.sentinel)
 
     def __call__(self, batch: SparseBatch):
         return self.packed_signatures(batch) if self.packed \
@@ -239,16 +367,18 @@ class SignatureEngine:
 def _run_minhash(eng, batch, plan, *, packed):
     fam = eng.family_obj
     counts = batch.nnz_per_row()
+    kw = dict(s=plan.s, b=plan.b, threads=plan.threads)
     if plan.family == "2u":
-        run = lambda **kw: kmin.minhash2u(batch.indices, counts, fam.a1,
-                                          fam.a2, s=plan.s, b=plan.b,
-                                          variant=plan.variant, **kw)
+        run = lambda **pk: kmin.minhash2u(batch.indices, counts, fam.a1,
+                                          fam.a2, variant=plan.variant,
+                                          **kw, **pk)
     else:
-        run = lambda **kw: kmin.minhash4u(batch.indices, counts, fam.a,
-                                          s=plan.s, b=plan.b, **kw)
-    blk_k = kmin.MINHASH_BLK_K
-    k_pad = -(-plan.k // blk_k) * blk_k
-    if packed and can_pack_in_kernel(k_pad, plan.k, plan.b, blk_k):
+        run = lambda **pk: kmin.minhash4u(batch.indices, counts, fam.a, **kw,
+                                          **pk)
+    # the fused pack fills groups of the launch's block, as the kernel cuts it
+    group = kmin.pack_group(plan.family == "4u", plan.k, plan.threads)
+    k_pad = -(-plan.k // group) * group
+    if packed and can_pack_in_kernel(k_pad, plan.k, plan.b, group):
         return run(pack=True)[1]
     out = run()
     return pack_device(out, PackSpec(plan.k, plan.b)) if packed else out
@@ -265,10 +395,11 @@ def _run_oph(eng, batch, plan, *, packed):
     if plan.family == "2u":
         raw = koph.oph2u(batch.indices, counts, base.a1, base.a2, s=plan.s,
                          bin_bits=bin_bits, variant=plan.variant,
-                         code_b=code_b)
+                         code_b=code_b, threads=plan.threads)
     else:
         raw = koph.oph4u(batch.indices, counts, base.a, s=plan.s,
-                         bin_bits=bin_bits, code_b=code_b)
+                         bin_bits=bin_bits, code_b=code_b,
+                         threads=plan.threads)
     return oph_epilogue(raw, k=plan.k, s=plan.s, bin_bits=bin_bits,
                         densify=plan.densify, b=plan.b, packed=packed,
                         coded=coded)
@@ -308,3 +439,79 @@ def batch_signatures(batch: SparseBatch, family, *, b: int = 0,
     """Signatures of a SparseBatch through a ``SignatureEngine``;
     ``packed=True`` returns ``PackedSignatures``."""
     return SignatureEngine(family, b=b, packed=packed)(batch)
+
+
+# ---------------------------------------------------------------------------
+# The tuning loop
+# ---------------------------------------------------------------------------
+
+def _time_candidates(candidates, run_one, iters: int,
+                     device: torch.device) -> dict:
+    """Run each candidate launch shape once untimed (which also builds the
+    kernel's library at first use), then ``iters`` times between two
+    clock reads, and keep the fastest mean.  On the card the device is
+    synchronised before every clock read.  A candidate that fails raises."""
+    candidates = [dict(c) for c in candidates]
+    if not candidates:
+        raise ValueError("tune() needs at least one candidate launch shape")
+    if iters < 1:
+        raise ValueError(f"tune() needs iters >= 1, got {iters}")
+    sync = ((lambda: torch.cuda.synchronize(device))
+            if device.type == "cuda" else (lambda: None))
+    best, best_s = None, math.inf
+    for blocks in candidates:
+        run_one(blocks)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run_one(blocks)
+        sync()
+        mean_s = (time.perf_counter() - t0) / iters
+        if mean_s < best_s:
+            best, best_s = blocks, mean_s
+    return best
+
+
+def tune(engine, batch, candidates, iters: int = 3,
+         table: Optional[TuningTable] = None) -> dict:
+    """Time candidate launch shapes and record the fastest in a table
+    (``table``, else the engine's, else ``default_tuning_table()``);
+    returns it.
+
+    Two schemes, as in the reference:
+      * ``engine`` a ``SignatureEngine`` and ``batch`` a ``SparseBatch``:
+        candidates ``{"threads": t}`` of the engine's kernel, recorded
+        under (backend, the kernel's scheme, k, the batch's nnz width);
+      * ``engine`` a ``PackSpec`` and ``batch`` a ``(qwords, cwords)`` pair:
+        ``packed_match`` output tiles ``{"blk_q": q, "blk_n": n}``,
+        recorded under ``"hamming"`` keyed on (k, ``spec.words``).
+
+    The entry goes under the tensors' backend.  On CPU tensors that is
+    ``torch``: the plain versions run, whose times say nothing about a
+    launch shape (the plain versions compute the same values whatever
+    the shape); only a ``cuda`` entry is a measurement of the kernel.
+    """
+    if isinstance(engine, PackSpec):
+        from repro_torch.kernels.hamming import packed_match
+        qwords, cwords = batch
+        device = same_device(qwords, cwords)
+        best = _time_candidates(
+            candidates, lambda blocks: packed_match(qwords, cwords, engine,
+                                                    blocks=blocks),
+            iters, device)
+        tab = table or default_tuning_table()
+        tab.record(backend_for(device).name, "hamming", engine.k,
+                   engine.words, best)
+        return best
+    if engine.scheme not in DEFAULT_BLOCKS:
+        raise ValueError(f"{engine.scheme} runs no kernel: nothing to tune")
+
+    def run_one(blocks):
+        SignatureEngine(engine.family_obj, b=engine.b, packed=engine.packed,
+                        blocks=blocks)(batch)
+
+    best = _time_candidates(candidates, run_one, iters, engine.device)
+    tab = table or engine._tuning or default_tuning_table()
+    tab.record(engine.backend, engine.scheme, engine.statics["k"],
+               batch.indices.shape[1], best)
+    return best

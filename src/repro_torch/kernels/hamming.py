@@ -12,25 +12,67 @@ and denominator correction.
 
   * ``packed_match_plain`` -- unpack with ``core/bbit.py``, broadcast
     compare, sum (the counterpart of ``repro.kernels.ref.packed_match_ref``).
-  * ``packed_match_cuda``  -- launches ``csrc/hamming.cu`` on the current
-    stream; counts its launches in ``packed_match_cuda.launches``.
-  * ``packed_match(qwords, cwords, spec)`` -- the plain version for CPU
-    tensors, the kernel for CUDA tensors.
+  * ``packed_match_cuda``  -- launches ``csrc/hamming.cu``'s
+    ``packed_match_tiled_launch`` on the current stream with an output
+    tile of ``HAMMING_TILES``; counts its launches in
+    ``packed_match_cuda.launches``.
+  * ``packed_match(qwords, cwords, spec, blocks=, tuning=)`` -- the plain
+    version for CPU tensors, the kernel for CUDA tensors; the tile is
+    ``blocks``, else the ``TuningTable``'s ``"hamming"`` entry for (k,
+    packed words), else the kernel's default.
+
+A tile is ``{"blk_q": queries, "blk_n": docs}``.  ``check_tile`` holds it
+to the tiles the build instantiates for the wire's kernel (``swar`` where
+the code width divides 32, else ``straddle``) on either device, so a bad
+table entry raises ``ValueError`` on the CPU as on the card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core.bbit import packed_words, unpack_codes
 from repro_torch.device import same_device
 from repro_torch.kernels import build
+from repro_torch.kernels.engine import backend_for, default_tuning_table
 from repro_torch.kernels.oph import _PLAIN_ELEMS, check_cuda_args
 from repro_torch.kernels.pack import PackSpec
 
-# grid.y (65,535) x queries per output tile (32 in the 9-bit kernel, 64
-# in the SWAR one)
-MAX_QUERIES = 65_535 * 32
+# The (queries, docs) output tiles csrc/hamming.cu instantiates for each
+# kernel (its SWAR_TILES / STRADDLE_TILES), the default first.
+HAMMING_TILES = {
+    "swar": ((64, 64), (32, 64), (64, 32), (32, 32)),
+    "straddle": ((32, 64), (64, 32), (32, 32), (16, 64)),
+}
+MAX_GRID_Y = 65_535        # a launch has at most this many query tiles
+
+
+def tile_kernel(code_bits: int) -> str:
+    """The kernel that scores a wire of ``code_bits``-wide codes."""
+    return "swar" if 32 % code_bits == 0 else "straddle"
+
+
+def default_tile(code_bits: int) -> dict:
+    q, n = HAMMING_TILES[tile_kernel(code_bits)][0]
+    return {"blk_q": q, "blk_n": n}
+
+
+def check_tile(blocks: dict, code_bits: int) -> tuple:
+    """(blk_q, blk_n) of ``blocks``; raise ``ValueError`` unless it is a
+    tile the build has for the ``code_bits`` wire's kernel."""
+    kernel = tile_kernel(code_bits)
+    have = HAMMING_TILES[kernel]
+    if not isinstance(blocks, dict) or set(blocks) != {"blk_q", "blk_n"}:
+        raise ValueError(f"packed_match: a tile is {{'blk_q': q, 'blk_n': n}}"
+                         f", got {blocks!r}")
+    tile = (blocks["blk_q"], blocks["blk_n"])
+    if tile not in have or any(isinstance(v, bool) for v in tile):
+        raise ValueError(f"packed_match: the {kernel} kernel (code_bits="
+                         f"{code_bits}) is built for tiles {list(have)} "
+                         f"(blk_q, blk_n), not {tile}")
+    return int(tile[0]), int(tile[1])
 
 
 def _check_format(name: str, k: int, code_bits: int, sentinel: bool,
@@ -93,9 +135,11 @@ def _last_word_mask(k: int, code_bits: int) -> int:
 
 
 def packed_match_cuda(qwords: torch.Tensor, cwords: torch.Tensor, *, k: int,
-                      code_bits: int, sentinel: bool = False):
-    """Launch ``packed_match_launch`` (csrc/hamming.cu) on the current
-    stream; returns the same as ``packed_match_plain``."""
+                      code_bits: int, sentinel: bool = False,
+                      blocks: Optional[dict] = None):
+    """Launch ``packed_match_tiled_launch`` (csrc/hamming.cu) on the
+    current stream with the output tile ``blocks`` (the kernel's default
+    when None); returns the same as ``packed_match_plain``."""
     nq, w = qwords.shape
     nc = cwords.shape[0]
     dev = check_cuda_args("packed_match", {"qwords": (nq, w),
@@ -103,20 +147,21 @@ def packed_match_cuda(qwords: torch.Tensor, cwords: torch.Tensor, *, k: int,
                           qwords=qwords, cwords=cwords)
     _check_format("packed_match", k, code_bits, sentinel, w,
                   cwords.shape[1])
-    if nq > MAX_QUERIES:
-        raise ValueError(f"packed_match: at most {MAX_QUERIES} queries a "
-                         f"launch, got {nq}")
+    blk_q, blk_n = check_tile(blocks or default_tile(code_bits), code_bits)
+    if nq > MAX_GRID_Y * blk_q:
+        raise ValueError(f"packed_match: at most {MAX_GRID_Y * blk_q} "
+                         f"queries a launch of {blk_q}-query tiles, got {nq}")
     matches = torch.empty((nq, nc), dtype=torch.int32, device=dev)
     both = (torch.empty((nq, nc), dtype=torch.int32, device=dev)
             if sentinel else None)
     if nq and nc:
         hi, lo = _field_masks(code_bits)
         with torch.cuda.device(dev):
-            status = build.library("hamming").packed_match_launch(
+            status = build.library("hamming").packed_match_tiled_launch(
                 qwords.data_ptr(), cwords.data_ptr(), nq, nc, w, k,
                 code_bits, int(sentinel), hi, lo,
-                _last_word_mask(k, code_bits), matches.data_ptr(),
-                both.data_ptr() if sentinel else None,
+                _last_word_mask(k, code_bits), blk_q, blk_n,
+                matches.data_ptr(), both.data_ptr() if sentinel else None,
                 build.stream_handle(dev))
         build.check(status, "packed_match")
         build.count_launch(packed_match_cuda)
@@ -126,12 +171,31 @@ def packed_match_cuda(qwords: torch.Tensor, cwords: torch.Tensor, *, k: int,
 packed_match_cuda.launches = 0
 
 
-def packed_match(qwords: torch.Tensor, cwords: torch.Tensor, spec: PackSpec):
+def resolve_tile(spec: PackSpec, device: torch.device,
+                 blocks: Optional[dict] = None, tuning=None) -> dict:
+    """The output tile for ``spec``'s wire on ``device``: ``blocks``, else
+    the table's ``"hamming"`` entry keyed on (k, packed words) under the
+    device's backend (``tuning``, else ``default_tuning_table()``), else
+    the kernel's default; checked against the build's tiles."""
+    if not blocks:
+        table = tuning or default_tuning_table()
+        blocks = (table.lookup(backend_for(device).name, "hamming", spec.k,
+                               spec.words) or default_tile(spec.code_bits))
+    check_tile(blocks, spec.code_bits)
+    return dict(blocks)
+
+
+def packed_match(qwords: torch.Tensor, cwords: torch.Tensor, spec: PackSpec,
+                 *, blocks: Optional[dict] = None, tuning=None):
     """Match counts between packed batches in the wire format ``spec``:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Returns (Q, N) int32, or ``(matches, both_empty)`` for sentinel
-    wires."""
-    fn = (packed_match_plain if same_device(qwords, cwords).type == "cpu"
-          else packed_match_cuda)
-    return fn(qwords, cwords, k=spec.k, code_bits=spec.code_bits,
-              sentinel=spec.sentinel)
+    The output tile comes from ``resolve_tile`` (explicit ``blocks`` >
+    ``tuning`` entry > default); the plain version checks it and computes
+    the same counts.  Returns (Q, N) int32, or ``(matches, both_empty)``
+    for sentinel wires."""
+    dev = same_device(qwords, cwords)
+    blocks = resolve_tile(spec, dev, blocks, tuning)
+    kw = dict(k=spec.k, code_bits=spec.code_bits, sentinel=spec.sentinel)
+    if dev.type == "cpu":
+        return packed_match_plain(qwords, cwords, **kw)
+    return packed_match_cuda(qwords, cwords, blocks=blocks, **kw)

@@ -5,7 +5,12 @@ versions (port of ``repro.kernels.minhash``), the paper's §3 kernel.
 (n,) int32`` and k hash functions, and return the (n, k) minima as int32
 uint32 bit patterns -- masked to b bits when ``b > 0``; with ``pack=True``
 also the (n, k*b/32) packed words of the fused epilogue, as
-``(sig, words)``.
+``(sig, words)``.  ``threads`` is the kernel's launch shape (the group
+size, ``MINHASH_BLK_K`` by default; a ``TuningTable`` entry may name
+another): any multiple of 32 in [32, 1024], checked before the device
+dispatch, so a bad value raises on CPU tensors too.  The plain versions
+take it and compute the same values whatever it is; it only decides
+where the fused pack applies (``pack_group``).
 
 CPU tensors go to the plain versions, CUDA tensors to the kernels of
 ``csrc/minhash.cu``.  Each CUDA wrapper counts its launches in
@@ -23,18 +28,35 @@ from repro_torch.kernels import build
 from repro_torch.kernels.oph import _PLAIN_ELEMS, check_cuda_args
 from repro_torch.kernels.pack import pack_block
 
-# threads per block, a multiple of 32: four hash functions each (strided
-# by this) in 4U; in 2U one when k <= 128 (k rounded up to 32 threads),
-# else four, so that one block covers a row's k <= 512 functions; the
-# fused pack packs groups of this many codes
+# threads per block by default, a multiple of 32: four hash functions each
+# (strided by this) in 4U; in 2U one when k <= 128 (k rounded up to 32
+# threads), else four, so that one block covers a row's k <= 512
+# functions; the fused pack packs groups of this many codes
 MINHASH_BLK_K = 128
+# every group size a launch may take (a TuningTable entry may name any)
+MINHASH_THREADS = tuple(range(32, 1025, 32))
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _minhash_plain(hash_fn, indices, counts, k, *, b, pack):
+def check_threads(name: str, threads) -> int:
+    """Raise ``ValueError`` unless ``threads`` is in ``MINHASH_THREADS``."""
+    if isinstance(threads, bool) or threads not in MINHASH_THREADS:
+        raise ValueError(f"{name}: threads must be a multiple of 32 in "
+                         f"[32, 1024], got {threads!r}")
+    return int(threads)
+
+
+def pack_group(four_u: bool, k: int, threads: int) -> int:
+    """The codes the fused pack fills as one group: the block ``threads``
+    of 4U, and of 2U cut to k rounded up to 32 as ``minhash2u_launch``
+    cuts it.  The kernel packs only when k is a multiple of it."""
+    return threads if four_u else min(threads, -(-k // 32) * 32)
+
+
+def _minhash_plain(hash_fn, indices, counts, k, *, b, pack, group):
     """Row-chunked so the (rows, nnz, k) int64 hash tensor stays <= 1 GB."""
     n, nnz = indices.shape
     counts = counts.reshape(-1).to(torch.int64)
@@ -53,51 +75,59 @@ def _minhash_plain(hash_fn, indices, counts, k, *, b, pack):
         out = out & ((1 << b) - 1)
     out = narrow(out)
     if pack:
-        _check_pack(b, k)
+        _check_pack(b, k, group)
         return out, pack_block(out, b)
     return out
 
 
 def minhash2u_plain(indices, counts, a1, a2, *, s: int, b: int = 0,
-                    variant: str = "high", pack: bool = False):
+                    variant: str = "high", pack: bool = False,
+                    threads: int = MINHASH_BLK_K):
     """Plain PyTorch ``minhash2u``."""
+    k = a1.shape[0]
+    group = pack_group(False, k, check_threads("minhash2u", threads))
     fn = lambda t: hash2u_apply(t, a1, a2, s, variant)
-    return _minhash_plain(fn, indices, counts, a1.shape[0], b=b, pack=pack)
+    return _minhash_plain(fn, indices, counts, k, b=b, pack=pack, group=group)
 
 
 def minhash4u_plain(indices, counts, a, *, s: int, b: int = 0,
-                    pack: bool = False):
+                    pack: bool = False, threads: int = MINHASH_BLK_K):
     """Plain PyTorch ``minhash4u``; ``a`` is (4, k)."""
+    k = a.shape[1]
+    group = pack_group(True, k, check_threads("minhash4u", threads))
     fn = lambda t: hash4u_apply(t, a[0], a[1], a[2], a[3], s)
-    return _minhash_plain(fn, indices, counts, a.shape[1], b=b, pack=pack)
+    return _minhash_plain(fn, indices, counts, k, b=b, pack=pack, group=group)
 
 
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check_pack(b: int, k: int) -> None:
-    if b <= 0 or 32 % b or b > 16 or k % MINHASH_BLK_K:
+def _check_pack(b: int, k: int, group: int) -> None:
+    if b <= 0 or 32 % b or b > 16 or k % group:
         raise ValueError(f"fused pack needs b | 32, b <= 16 and k a multiple "
-                         f"of {MINHASH_BLK_K}; got b={b}, k={k}")
+                         f"of the launch's group of {group}; got b={b}, k={k}")
 
 
-def _outputs(name, dev, n, k, b, pack):
+def _outputs(name, dev, n, k, b, pack, group):
     if not 0 <= b <= 32:
         raise ValueError(f"{name}: b must be in [0, 32], got {b}")
     out = torch.empty((n, k), dtype=torch.int32, device=dev)
     words = None
     if pack:
-        _check_pack(b, k)
+        _check_pack(b, k, group)
         words = torch.empty((n, k * b // 32), dtype=torch.int32, device=dev)
     return out, words
 
 
 def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
-                   variant: str = "high", pack: bool = False):
-    """Launch ``minhash2u_launch`` (csrc/minhash.cu) on the current stream."""
+                   variant: str = "high", pack: bool = False,
+                   threads: int = MINHASH_BLK_K):
+    """Launch ``minhash2u_launch`` (csrc/minhash.cu) on the current stream
+    with groups of ``threads``."""
     n, nnz = indices.shape
     k = a1.shape[0]
+    threads = check_threads("minhash2u", threads)
     dev = check_cuda_args("minhash2u", {"indices": (n, nnz), "counts": (n,),
                                         "a1": (k,), "a2": (k,)},
                           indices=indices, counts=counts, a1=a1, a2=a2)
@@ -105,14 +135,15 @@ def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
         raise ValueError(f"minhash2u: need 1 <= s <= 32, got {s}")
     if variant not in ("high", "low"):
         raise ValueError(f"minhash2u: variant must be 'high' or 'low', got {variant!r}")
-    out, words = _outputs("minhash2u", dev, n, k, b, pack)
+    out, words = _outputs("minhash2u", dev, n, k, b, pack,
+                          pack_group(False, k, threads))
     if n and k:
         with torch.cuda.device(dev):
             status = build.library("minhash").minhash2u_launch(
                 indices.data_ptr(), counts.data_ptr(), n, nnz, a1.data_ptr(),
                 a2.data_ptr(), k, s, int(variant == "high"), b, out.data_ptr(),
                 words.data_ptr() if pack else None,
-                words.shape[1] if pack else 0, MINHASH_BLK_K,
+                words.shape[1] if pack else 0, threads,
                 build.stream_handle(dev))
         build.check(status, "minhash2u")
         build.count_launch(minhash2u_cuda)
@@ -120,22 +151,24 @@ def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
 
 
 def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
-                   pack: bool = False):
+                   pack: bool = False, threads: int = MINHASH_BLK_K):
     """Launch ``minhash4u_launch`` (csrc/minhash.cu); ``a`` is (4, k)."""
     n, nnz = indices.shape
     k = a.shape[1]
+    threads = check_threads("minhash4u", threads)
     dev = check_cuda_args("minhash4u", {"indices": (n, nnz), "counts": (n,),
                                         "a": (4, k)},
                           indices=indices, counts=counts, a=a)
     if not 1 <= s <= 31:
         raise ValueError(f"minhash4u: need 1 <= s <= 31, got {s}")
-    out, words = _outputs("minhash4u", dev, n, k, b, pack)
+    out, words = _outputs("minhash4u", dev, n, k, b, pack,
+                          pack_group(True, k, threads))
     if n and k:
         with torch.cuda.device(dev):
             status = build.library("minhash").minhash4u_launch(
                 indices.data_ptr(), counts.data_ptr(), n, nnz, a.data_ptr(), k,
                 s, b, out.data_ptr(), words.data_ptr() if pack else None,
-                words.shape[1] if pack else 0, MINHASH_BLK_K,
+                words.shape[1] if pack else 0, threads,
                 build.stream_handle(dev))
         build.check(status, "minhash4u")
         build.count_launch(minhash4u_cuda)
@@ -151,18 +184,19 @@ minhash4u_cuda.launches = 0
 # ---------------------------------------------------------------------------
 
 def minhash2u(indices, counts, a1, a2, *, s: int, b: int = 0,
-              variant: str = "high", pack: bool = False):
+              variant: str = "high", pack: bool = False,
+              threads: int = MINHASH_BLK_K):
     """2U minhash signatures: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if same_device(indices, counts, a1, a2).type == "cpu":
-        return minhash2u_plain(indices, counts, a1, a2, s=s, b=b,
-                               variant=variant, pack=pack)
-    return minhash2u_cuda(indices, counts, a1, a2, s=s, b=b, variant=variant,
-                          pack=pack)
+    fn = (minhash2u_plain if same_device(indices, counts, a1, a2).type == "cpu"
+          else minhash2u_cuda)
+    return fn(indices, counts, a1, a2, s=s, b=b, variant=variant, pack=pack,
+              threads=threads)
 
 
-def minhash4u(indices, counts, a, *, s: int, b: int = 0, pack: bool = False):
+def minhash4u(indices, counts, a, *, s: int, b: int = 0, pack: bool = False,
+              threads: int = MINHASH_BLK_K):
     """4U minhash signatures (Mersenne BitMod); see ``minhash2u``."""
-    if same_device(indices, counts, a).type == "cpu":
-        return minhash4u_plain(indices, counts, a, s=s, b=b, pack=pack)
-    return minhash4u_cuda(indices, counts, a, s=s, b=b, pack=pack)
+    fn = (minhash4u_plain if same_device(indices, counts, a).type == "cpu"
+          else minhash4u_cuda)
+    return fn(indices, counts, a, s=s, b=b, pack=pack, threads=threads)

@@ -10,7 +10,10 @@ or with ``code_b > 0`` the (code_b+1)-bit sentinel codes (EMPTY -> 2^code_b).
 They dispatch on the tensors' device: CPU tensors go to the plain PyTorch
 versions (``*_plain``), CUDA tensors to the kernels of ``csrc/oph.cu``
 (``*_cuda``, which raise on anything they do not take).  Each CUDA wrapper
-counts its launches in ``<wrapper>.launches``.  Unlike the TPU kernels no
+counts its launches in ``<wrapper>.launches``.  ``threads`` is the launch
+shape: 2U's block size, ``OPH_THREADS`` by default (a ``TuningTable``
+entry may name another multiple of 64 up to 1024), checked before the
+device dispatch; the plain versions take it and compute the same values.  Unlike the TPU kernels no
 bin padding to 128 lanes is kept: the output has exactly k columns.
 """
 
@@ -28,6 +31,8 @@ from repro_torch.kernels import build
 # launcher rejects any other); 4U runs OPH_THREADS // 2 threads with twice
 # the 16-byte loads each (oph.cu's OPH_VPT = 4 for 2U, 8 for 4U)
 OPH_THREADS = 256
+# every block size a launch may take (a TuningTable entry may name any)
+OPH_THREAD_CHOICES = tuple(range(64, 1025, 64))
 MAX_BIN_BITS = 13     # k <= 8192 bins: 32 KB of shared memory per block
 _PLAIN_ELEMS = 1 << 27   # int64 elements per plain-version row chunk (1 GB)
 
@@ -56,17 +61,28 @@ def _oph_plain(hash_fn, indices, counts, *, s, bin_bits, code_b):
     return narrow(torch.cat(outs))
 
 
+def check_threads(name: str, threads) -> int:
+    """Raise ``ValueError`` unless ``threads`` is in ``OPH_THREAD_CHOICES``."""
+    if isinstance(threads, bool) or threads not in OPH_THREAD_CHOICES:
+        raise ValueError(f"{name}: threads must be a multiple of 64 in "
+                         f"[64, 1024], got {threads!r}")
+    return int(threads)
+
+
 def oph2u_plain(indices, counts, a1, a2, *, s: int, bin_bits: int,
-                variant: str = "high", code_b: int = 0) -> torch.Tensor:
+                variant: str = "high", code_b: int = 0,
+                threads: int = OPH_THREADS) -> torch.Tensor:
     """Plain PyTorch ``oph2u``: raw (or sentinel-coded) bin minima."""
+    check_threads("oph2u", threads)
     fn = lambda idx: hash2u_apply(idx, a1[0], a2[0], s, variant)
     return _oph_plain(fn, indices, counts, s=s, bin_bits=bin_bits,
                       code_b=code_b)
 
 
 def oph4u_plain(indices, counts, a, *, s: int, bin_bits: int,
-                code_b: int = 0) -> torch.Tensor:
+                code_b: int = 0, threads: int = OPH_THREADS) -> torch.Tensor:
     """Plain PyTorch ``oph4u``; ``a`` is (4, 1)."""
+    check_threads("oph4u", threads)
     fn = lambda idx: hash4u_apply(idx, a[0, 0], a[1, 0], a[2, 0], a[3, 0], s)
     return _oph_plain(fn, indices, counts, s=s, bin_bits=bin_bits,
                       code_b=code_b)
@@ -106,9 +122,12 @@ def _check_oph_statics(name, s, bin_bits, code_b):
 
 
 def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
-               variant: str = "high", code_b: int = 0) -> torch.Tensor:
-    """Launch ``oph2u_launch`` (csrc/oph.cu) on the current stream."""
+               variant: str = "high", code_b: int = 0,
+               threads: int = OPH_THREADS) -> torch.Tensor:
+    """Launch ``oph2u_launch`` (csrc/oph.cu) on the current stream, a block
+    of ``threads`` a row."""
     n, nnz = indices.shape
+    threads = check_threads("oph2u", threads)
     dev = check_cuda_args("oph2u", {"indices": (n, nnz), "counts": (n,),
                                     "a1": (1,), "a2": (1,)},
                           indices=indices, counts=counts, a1=a1, a2=a2)
@@ -122,16 +141,18 @@ def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
         status = build.library("oph").oph2u_launch(
             indices.data_ptr(), counts.data_ptr(), n, nnz, a1.data_ptr(),
             a2.data_ptr(), s, bin_bits, int(variant == "high"), code_b,
-            out.data_ptr(), OPH_THREADS, build.stream_handle(dev))
+            out.data_ptr(), threads, build.stream_handle(dev))
     build.check(status, "oph2u")
     build.count_launch(oph2u_cuda)
     return out
 
 
 def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
-               code_b: int = 0) -> torch.Tensor:
-    """Launch ``oph4u_launch`` (csrc/oph.cu); ``a`` is (4, 1)."""
+               code_b: int = 0, threads: int = OPH_THREADS) -> torch.Tensor:
+    """Launch ``oph4u_launch`` (csrc/oph.cu), ``threads // 2`` threads a
+    row; ``a`` is (4, 1)."""
     n, nnz = indices.shape
+    threads = check_threads("oph4u", threads)
     dev = check_cuda_args("oph4u", {"indices": (n, nnz), "counts": (n,),
                                     "a": (4, 1)},
                           indices=indices, counts=counts, a=a)
@@ -142,7 +163,7 @@ def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
     with torch.cuda.device(dev):
         status = build.library("oph").oph4u_launch(
             indices.data_ptr(), counts.data_ptr(), n, nnz, a.data_ptr(), s,
-            bin_bits, code_b, out.data_ptr(), OPH_THREADS,
+            bin_bits, code_b, out.data_ptr(), threads,
             build.stream_handle(dev))
     build.check(status, "oph4u")
     build.count_launch(oph4u_cuda)
@@ -158,21 +179,20 @@ oph4u_cuda.launches = 0
 # ---------------------------------------------------------------------------
 
 def oph2u(indices, counts, a1, a2, *, s: int, bin_bits: int,
-          variant: str = "high", code_b: int = 0) -> torch.Tensor:
+          variant: str = "high", code_b: int = 0,
+          threads: int = OPH_THREADS) -> torch.Tensor:
     """2U OPH bin minima: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if same_device(indices, counts, a1, a2).type == "cpu":
-        return oph2u_plain(indices, counts, a1, a2, s=s, bin_bits=bin_bits,
-                           variant=variant, code_b=code_b)
-    return oph2u_cuda(indices, counts, a1, a2, s=s, bin_bits=bin_bits,
-                      variant=variant, code_b=code_b)
+    fn = (oph2u_plain if same_device(indices, counts, a1, a2).type == "cpu"
+          else oph2u_cuda)
+    return fn(indices, counts, a1, a2, s=s, bin_bits=bin_bits,
+              variant=variant, code_b=code_b, threads=threads)
 
 
-def oph4u(indices, counts, a, *, s: int, bin_bits: int,
-          code_b: int = 0) -> torch.Tensor:
+def oph4u(indices, counts, a, *, s: int, bin_bits: int, code_b: int = 0,
+          threads: int = OPH_THREADS) -> torch.Tensor:
     """4U OPH bin minima (Mersenne BitMod); see ``oph2u``."""
-    if same_device(indices, counts, a).type == "cpu":
-        return oph4u_plain(indices, counts, a, s=s, bin_bits=bin_bits,
-                           code_b=code_b)
-    return oph4u_cuda(indices, counts, a, s=s, bin_bits=bin_bits,
-                      code_b=code_b)
+    fn = (oph4u_plain if same_device(indices, counts, a).type == "cpu"
+          else oph4u_cuda)
+    return fn(indices, counts, a, s=s, bin_bits=bin_bits, code_b=code_b,
+              threads=threads)

@@ -4,8 +4,10 @@ kernels and engine.
 The reference kept this module so that old imports go on working; the
 port keeps the same names.  The TPU launch knobs of the reference's
 wrappers (``use_pallas``, ``backend``, ``blk_*``) have no counterpart: the
-tensors' device picks the CUDA kernel or its plain version.  New code
-should import from ``repro_torch.kernels`` directly.
+tensors' device picks the CUDA kernel or its plain version, at the
+kernels' default launch shapes (a tuned shape goes through
+``SignatureEngine`` and its ``TuningTable``).  New code should import from
+``repro_torch.kernels`` directly.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ whole 16-byte words in rounds of VPT a thread (4 at 256 threads for 2U,
 8 at 128 threads for 4U), and a scalar tail of fewer than four lanes.
 The model must visit every lane in [0, counts[i]) exactly once and no
 other as a value, for every nnz % 4, count and base offset, and over
-several rounds; fed through it, the bin minima must equal
-``repro.kernels.oph.oph2u_pallas`` / ``oph4u_pallas`` in interpret mode.
+several rounds, at every launch shape a tuning table may name (2U block
+sizes 64 to 1,024 by 64, 4U half as many threads); fed through it, the
+bin minima must equal ``repro.kernels.oph.oph2u_pallas`` /
+``oph4u_pallas`` in interpret mode.
 The kernel itself runs only on the card (``chip_smoke.py`` holds it
 against its plain version there, on an edge chunk of the same cases).
 """
@@ -19,7 +21,7 @@ import torch
 
 from repro.core.hashing import hash2u_apply, hash4u_apply
 from repro.kernels.oph import oph2u_pallas, oph4u_pallas
-from repro_torch.kernels.oph import OPH_THREADS
+from repro_torch.kernels.oph import OPH_THREAD_CHOICES, OPH_THREADS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,10 +41,14 @@ EMPTY = 0xFFFFFFFF
 
 # ---------------------------------------------------------------------------
 
-# (threads, 16-byte loads per thread per round) of oph.cu's launches: 2U
-# OPH_THREADS x OPH_VPT, 4U half the threads x twice the loads
+# (threads, 16-byte loads per thread per round) of oph.cu's launches at
+# each block size t a launch may take (OPH_THREADS by default): 2U t x
+# OPH_VPT, 4U t / 2 threads x twice the loads
 OPH_VPT = 4
-LAUNCH = {"2u": (OPH_THREADS, OPH_VPT), "4u": (OPH_THREADS // 2, 2 * OPH_VPT)}
+LAUNCH = {t: {"2u": (t, OPH_VPT), "4u": (t // 2, 2 * OPH_VPT)}
+          for t in OPH_THREAD_CHOICES}
+SHAPES = sorted({shape for per in LAUNCH.values() for shape in per.values()})
+assert LAUNCH[OPH_THREADS]["2u"] in SHAPES      # the default launch too
 
 
 def _oph_lanes(cnt, base, threads, vpt):
@@ -57,19 +63,19 @@ def _oph_lanes(cnt, base, threads, vpt):
     nvec = (cnt - head) // 4
     tail = head + 4 * nvec
     seen = []
-    for tid in range(threads):
+    for tid in range(min(threads, 6)):       # threads 6 on read no scalar
         lane = tid if tid < 3 else tail + tid - 3
-        if (tid < head) if tid < 3 else (tid < 6 and lane < cnt):
+        if (tid < head) if tid < 3 else lane < cnt:
             seen.append(lane)
     r0, rounds = 0, 0
     while True:
         for u in range(vpt):
-            for tid in range(threads):
+            # the threads whose word q of this round lies below nvec
+            for tid in range(max(0, min(threads, nvec - r0 - u * threads))):
                 q = r0 + u * threads + tid
-                if q < nvec:
-                    first = head + 4 * q
-                    assert (base + first) % 4 == 0 and first + 4 <= cnt
-                    seen += range(first, first + 4)
+                first = head + 4 * q
+                assert (base + first) % 4 == 0 and first + 4 <= cnt
+                seen += range(first, first + 4)
         rounds += 1
         r0 += vpt * threads
         if r0 >= nvec:
@@ -77,13 +83,14 @@ def _oph_lanes(cnt, base, threads, vpt):
     return seen, rounds
 
 
-@pytest.mark.parametrize("threads,vpt", [(6, 4), (256, 4), (128, 8)])
+@pytest.mark.parametrize("threads,vpt", [(6, 4)] + SHAPES)
 @pytest.mark.parametrize("nnz", [124, 125, 126, 127])
 def test_oph_row_partition_visits_each_lane_once(nnz, threads, vpt):
     """Every count 0..nnz of rows at every 4-byte offset of a 16-byte word
-    (row i of a batch at offset off starts at element off + i * nnz); at
-    6 threads, the fewest the scalar lanes need, a round is 96 lanes, so
-    longer rows take several rounds of loads."""
+    (row i of a batch at offset off starts at element off + i * nnz), at
+    every launch shape (``SHAPES``, the default (256, 4) and (128, 8)
+    among them); at 6 threads, the fewest the scalar lanes need, a round
+    is 96 lanes, so longer rows take several rounds of loads."""
     multi = 0
     for off in (0, 1):
         for i in range(4):
@@ -118,8 +125,9 @@ def _oph_model(idx_flat, off, n, nnz, counts, hash_fn, s, bin_bits, code_b,
 @pytest.mark.parametrize("nnz", [124, 125, 126, 127])
 def test_oph_partition_bins_equal_pallas(nnz, kind):
     """The model's bin minima, the batch at an aligned base and one
-    element past it, (bin_bits, code_b) in {(0, 0), (4, 8)}: equal to
-    the Pallas kernel in interpret mode."""
+    element past it, (bin_bits, code_b) in {(0, 0), (4, 8)}, at every
+    launch shape of ``LAUNCH``: equal to the Pallas kernel in interpret
+    mode."""
     rng = np.random.default_rng(161 + nnz)
     s, n = 24, 8
     counts = np.array([0, 1, 3, nnz - 1, nnz, nnz + 5, -1, 70], np.int32)
@@ -135,13 +143,16 @@ def test_oph_partition_bins_equal_pallas(nnz, kind):
         hash_fn = lambda t: np.asarray(hash2u_apply(
             j32(t), j32(a1[0]), j32(a2[0]), s, variant)).astype(np.uint64)
     flat = rng.integers(0, 2**32, n * nnz + 1, dtype=np.uint64)
+    # the hash of every value of the batch, taken once: the model reads it
+    # at each of the LAUNCH shapes
+    values = np.unique(flat)
+    hashed = hash_fn(values)
+    cached = lambda t: hashed[np.searchsorted(values, t)]
     for off in (0, 1):
         idx = flat[off:off + n * nnz].reshape(n, nnz)
         jidx = jnp.asarray(idx.astype(np.uint32).view(np.int32))
         jcnt = jnp.asarray(counts[:, None])
         for bin_bits, code_b in ((0, 0), (4, 8)):
-            got = _oph_model(flat, off, n, nnz, counts, hash_fn, s,
-                             bin_bits, code_b, *LAUNCH[kind[:2]])
             kw = dict(s=s, bin_bits=bin_bits, blk_n=n, blk_t=nnz,
                       code_b=code_b, interpret=True)
             if kind == "4u":
@@ -150,4 +161,7 @@ def test_oph_partition_bins_equal_pallas(nnz, kind):
                 want = oph2u_pallas(jidx, jcnt, j32(a1), j32(a2),
                                     variant=variant, **kw)
             want = np.asarray(want)[:, :1 << bin_bits].astype(np.uint64)
-            np.testing.assert_array_equal(got, want)
+            for per in LAUNCH.values():
+                got = _oph_model(flat, off, n, nnz, counts, cached, s,
+                                 bin_bits, code_b, *per[kind[:2]])
+                np.testing.assert_array_equal(got, want)
