@@ -476,6 +476,18 @@ DRYRUN_WORLD1 = (("wide-deep", "train_batch"), ("autoint", "train_batch"),
                  ("gatedgcn", "minibatch_lg"))
 DRYRUN_STEPS = 4
 ALLOC_ROUND = 512
+# (b) the traced temp of each world-1 cell against the temp measured on the
+# card for the same step (after one warm-up step: the peak's growth over
+# the live bytes before it, less the outputs that are not arguments)
+DRYRUN_TEMP_REL, DRYRUN_TEMP_ABS = 0.10, 64 << 20
+# (c) LM prefill and decode on a (1, 1) process mesh against the unmeshed
+# step, bit for bit, under deterministic algorithms: arch -> (layers,
+# prefill positions (one row), decode batch, decode cache length).  Depth
+# as phase 10 cuts it; deepseek-v3's decode at its published batch of 128,
+# where the EP body's capacity (rounded to 4) and the dense path's
+# (rounded to 8) are both 8, as both are 80 at 2,048 prefill tokens
+DRYRUN_MESH_LM = {"deepseek-7b": (30, 4_096, 2, 4_096),
+                  "deepseek-v3-671b": (4, 2_048, 128, 1_024)}
 
 # The engine's tuning loop (phase 17): tune() over these launch shapes
 # (every instantiated output tile for packed_match), TUNE_ITERS timed runs
@@ -4999,24 +5011,43 @@ def requested(torch) -> int:
     return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
+def storage_bytes(tensors) -> dict:
+    """Each distinct storage of ``tensors`` (data pointer -> bytes, rounded
+    to the allocator's ``ALLOC_ROUND``)."""
+    out = {}
+    for t in tensors:
+        if not hasattr(t, "untyped_storage"):
+            continue            # a Python number in a state
+        st = t.untyped_storage()
+        out[st.data_ptr()] = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+    return out
+
+
 def dryrun_check(torch, dev) -> dict:
-    """Phase 16: (a) ``launch.dryrun.run_cell`` on every arch x cell at its
-    published config on both production meshes, on the host (the meta
-    device): ``DRYRUN_RECORDS`` ok and skipped records and no error, the
-    largest bytes a GPU on each mesh, the cells that do not fit 80 GB, and
-    ``roofline.report``'s two roofline tables.  (b) At world 1 (a (1, 1)
-    shape-only mesh), each cell of ``DRYRUN_WORLD1`` built on the card
-    through ``CellProgram.init_params``, ``optimizer.init`` and
-    ``init_inputs``: the growth of the bytes asked of the allocator
-    (``requested``) == the dry run's ``args_bytes`` (plus the recsys
-    frontend's coefficients, which the model holds and the reference's
-    parameters do not) within ``ALLOC_ROUND`` B a leaf, with the growth of
-    ``memory_allocated`` printed beside (rounded: a large block keeps its
-    segment's unsplit remainder, under 1 MiB); then ``DRYRUN_STEPS`` steps:
-    the peak's growth beside args + output - alias (the difference is the
-    temp the dry run cannot count), and the median step (host clock to a
-    sync) beside ``Roofline``'s projected step at (1, 1).  Returns the ``sigbag`` and
-    ``minhash2u`` launches of those steps."""
+    """Phase 16: (a) ``launch.dryrun.run_all`` over every arch x cell at
+    its published config on both production meshes, each step traced on
+    rank 0 of a fake world of 256 / 512 ranks on the host (meta tensors,
+    a process a cell, as many at once as the host has cores; every step
+    traced whole): ``DRYRUN_RECORDS`` ok and skipped
+    records and no error, the trace's seconds, the largest bytes a GPU on
+    each mesh now that the temp counts, the cells over 80 GB, and
+    ``roofline.report``'s tables.  (b) At world 1 (a (1, 1) mesh), each
+    cell of ``DRYRUN_WORLD1`` built on the card through
+    ``CellProgram.init_params``, ``optimizer.init`` and ``init_inputs``:
+    the growth of the bytes asked of the allocator (``requested``) == the
+    dry run's ``args_bytes`` (plus the recsys frontend's coefficients,
+    which the model holds and the reference's parameters do not) within
+    ``ALLOC_ROUND`` B a leaf, with the growth of ``memory_allocated``
+    printed beside; then ``DRYRUN_STEPS`` steps: after the first, the
+    peak is reset and the live bytes taken, and the second step's temp
+    (the peak's growth less its outputs that are not its arguments) is
+    held to the dry run's traced temp within ``DRYRUN_TEMP_REL`` or
+    ``DRYRUN_TEMP_ABS``; the median step (host clock to a sync) beside
+    ``Roofline``'s projected step at (1, 1).  (c) ``DRYRUN_MESH_LM``:
+    an LM prefill and decode step on a (1, 1) NCCL process mesh (the
+    meshed body, DTensor parameters) == the unmeshed step bit for bit,
+    hidden states, next tokens and the cache written in place.  Returns
+    the ``sigbag`` and ``minhash2u`` launches of (b)'s steps."""
     import math
 
     from repro_torch.configs import all_archs, cells_for
@@ -5028,10 +5059,11 @@ def dryrun_check(torch, dev) -> dict:
     from repro_torch.roofline import hardware as hw
     from repro_torch.roofline import report
     from repro_torch.roofline.analysis import analyze
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
 
-    # -- (a) every cell on both production meshes, on the host ------------
+    # -- (a) every cell on both production meshes, traced on the host -----
     cells = [(a, c.name) for a in sorted(all_archs()) for c in cells_for(a)]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -5046,33 +5078,56 @@ def dryrun_check(torch, dev) -> dict:
         raise AssertionError(f"dry run: {status.count('ok')} ok and "
                              f"{status.count('skipped')} skipped records, "
                              f"want {DRYRUN_RECORDS}")
+    ok_recs = [r for r in recs if r["status"] == "ok"]
+    for r in ok_recs:
+        m = r["memory"]
+        if not (isinstance(m["temp_bytes"], int) and m["temp_bytes"] >= 0
+                and isinstance(r["compile_s"], float)):
+            raise AssertionError(f"dry run {r['arch']}/{r['cell']}/"
+                                 f"{r['mesh']}: temp {m['temp_bytes']!r}, "
+                                 f"compile_s {r['compile_s']!r}")
+    slow = max(ok_recs, key=lambda r: r["compile_s"])
     log(f"[dryrun] {len(cells)} cells x 16x16, 2x16x16 at published "
-        f"configs, placed on the host (meta device, no card): "
-        f"{status.count('ok')} ok, {status.count('skipped')} skipped, 0 "
-        f"errors in {secs:.2f} s")
+        f"configs, each step traced on rank 0 of a fake world (meta "
+        f"tensors, no card) in {os.cpu_count()} processes: "
+        f"{status.count('ok')} ok, "
+        f"{status.count('skipped')} skipped, 0 errors in {secs:.2f} s "
+        f"(trace seconds summed {sum(r['compile_s'] for r in ok_recs):.2f};"
+        f" slowest {slow['arch']}/{slow['cell']}/{slow['mesh']} "
+        f"{slow['compile_s']:.2f} s; {sum(r['trace']['ops'] for r in ok_recs):,}"
+        f" operations)")
     by_key = {(r["arch"], r["cell"], r["mesh"]): r for r in recs}
     for mesh in ("16x16", "2x16x16"):
-        ok = [r for r in recs if r["mesh"] == mesh and r["status"] == "ok"]
+        ok = [r for r in ok_recs if r["mesh"] == mesh]
         top = max(ok, key=lambda r: r["memory"]["total_per_chip_bytes"])
+        hot = max(ok, key=lambda r: r["memory"]["temp_bytes"])
         over = [f"{r['arch']}/{r['cell']} "
-                f"{r['memory']['total_per_chip_bytes']:,} B" for r in ok
+                f"{r['memory']['total_per_chip_bytes']:,} B (temp "
+                f"{r['memory']['temp_bytes']:,})" for r in ok
                 if not r["memory"]["total_per_chip_bytes"] <= hw.HBM_BYTES]
-        log(f"[dryrun] {mesh}: largest args + output - alias a GPU "
+        log(f"[dryrun] {mesh}: largest args + output - alias + temp a GPU "
             f"{top['memory']['total_per_chip_bytes']:,} B "
-            f"({top['arch']}/{top['cell']}; temp not counted); over "
-            f"{hw.HBM_BYTES / 1e9:.0f} GB: {', '.join(over) or 'none'}")
-        log(f"[dryrun] roofline {mesh} (analytic counts; H100 constants, "
-            f"collectives over {ok[0]['roofline']['link']} at "
+            f"({top['arch']}/{top['cell']}, temp "
+            f"{top['memory']['temp_bytes']:,} B); largest temp "
+            f"{hot['memory']['temp_bytes']:,} B ({hot['arch']}/"
+            f"{hot['cell']}); over {hw.HBM_BYTES / 1e9:.0f} GB: "
+            f"{', '.join(over) or 'none'}")
+        log(f"[dryrun] roofline {mesh} (each count the larger of the traced "
+            f"and the analytic; H100 constants, collectives over "
+            f"{ok[0]['roofline']['link']} at "
             f"{ok[0]['roofline']['link_bw'] / 1e9:.0f} GB/s):\n"
             + report.roofline_table(by_key, mesh))
+    log("[dryrun] matrix (GB a GPU; temp of the traced step; trace "
+        "seconds):\n" + report.dryrun_table(by_key))
 
-    # -- (b) the byte count on the card at world 1 -------------------------
+    # -- (b) the bytes and the temp on the card at world 1 -----------------
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh1 = abstract_mesh((1, 1))
     kern, mh = sigbag_cuda, kmin.minhash2u_cuda
     launches = {"sigbag": 0, "minhash2u": 0}
     for arch, cell in DRYRUN_WORLD1:
-        mem = dryrun.run_cell(arch, cell, mesh=mesh1)["memory"]
+        rec = dryrun.run_cell(arch, cell, mesh=mesh1)
+        mem, tr = rec["memory"], rec["trace"]
         prog = build_cell(arch, cell, device=dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -5096,21 +5151,27 @@ def dryrun_check(torch, dev) -> dict:
         # the step reads the recsys model's config and coefficients only
         shell = model.without_weights() if prog.family == "recsys" else None
         del model
-        torch.cuda.reset_peak_memory_stats()
         kern.launches = mh.launches = 0
         walls, losses = [], []
+        measured = None
         for i in range(DRYRUN_STEPS):
             torch.cuda.synchronize()
+            if i == 1:
+                live = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                held = storage_bytes(tree_leaves((params, state, batch)))
             t0 = time.perf_counter()
             params, state, loss = prog.step(shell, params, state, batch)
             torch.cuda.synchronize()
+            if i == 1:
+                growth = torch.cuda.max_memory_allocated() - live
+                new = storage_bytes(tree_leaves((params, state, loss)))
+                fresh = sum(n for k, n in new.items() if k not in held)
+                measured = growth - fresh
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(loss))
         got = {"sigbag": kern.launches, "minhash2u": mh.launches}
-        peak = torch.cuda.max_memory_allocated() - base
-        peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
-            - base_req
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{arch}/{cell}: losses {losses}")
         n_want = DRYRUN_STEPS * bool(getattr(prog.config,
@@ -5120,6 +5181,8 @@ def dryrun_check(torch, dev) -> dict:
                                  f"{n_want} each")
         for name, n in got.items():
             launches[name] += n
+        temp = mem["temp_bytes"]
+        gate = max(DRYRUN_TEMP_REL * measured, DRYRUN_TEMP_ABS)
         total = mem["total_per_chip_bytes"]
         roof = analyze(prog, mesh1, memory_bytes=total)
         ms = statistics.median(walls)
@@ -5131,21 +5194,131 @@ def dryrun_check(torch, dev) -> dict:
             f"(gate +-{slack:,}); memory_allocated +{grown:,} B "
             f"({grown - want:+,} B: blocks rounded to 512 B, a large one "
             f"keeping its segment's unsplit remainder under 1 MiB)")
-        log(f"[dryrun world 1] {arch}/{cell}: {DRYRUN_STEPS} steps: peak "
-            f"allocated +{peak:,} B (asked +{peak_req:,}) vs args + output "
-            f"- alias {total:,} B: temp the dry run cannot count "
-            f"{peak - total:,} B ({peak / total:.2f}x the total); median "
-            f"step {ms:.2f} ms (host clock to a sync, {len(walls)} steps) "
-            f"vs projected {roof.step_s * 1e3:.4f} ms ({roof.bottleneck}; "
-            f"compute {roof.compute_s * 1e3:.4f}, memory "
-            f"{roof.memory_s * 1e3:.4f}, collective "
-            f"{roof.collective_s * 1e3:.4f} ms: link {roof.link}), measured "
-            f"/ projected {ms / (roof.step_s * 1e3):.1f}x; loss "
+        log(f"[dryrun world 1] {arch}/{cell}: temp traced {temp:,} B "
+            f"(peak {tr['peak_bytes']:,} B over traced args "
+            f"{tr['args_bytes']:,} + outputs {tr['output_bytes']:,} - alias "
+            f"{tr['alias_bytes']:,}; {tr['ops']:,} operations in "
+            f"{rec['compile_s']:.2f} s) vs measured {measured:,} B (step 2: "
+            f"peak growth {growth:,} B over {live:,} B live, less "
+            f"{fresh:,} B of new outputs): {temp - measured:+,} B "
+            f"({(temp - measured) / max(measured, 1):+.2%}; gate "
+            f"+-{gate:,.0f} B); median step {ms:.2f} ms (host clock to a "
+            f"sync, {len(walls)} steps) vs projected "
+            f"{roof.step_s * 1e3:.4f} ms ({roof.bottleneck}), measured / "
+            f"projected {ms / (roof.step_s * 1e3):.1f}x; loss "
             f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {got}")
+        if abs(temp - measured) > gate:
+            raise AssertionError(f"{arch}/{cell}: traced temp {temp:,} B vs "
+                                 f"measured {measured:,} B (gate "
+                                 f"+-{gate:,.0f})")
         del shell, params, state, batch, loss
         torch.cuda.empty_cache()
+
+    # -- (c) LM serving on a (1, 1) process mesh == unmeshed ---------------
+    mesh_lm_serving(torch, dev)
     log(f"[dryrun] {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def written_at(after, before) -> list:
+    """The positions (dim 2 of a cache leaf) where ``after`` differs from
+    ``before``."""
+    diff = (after != before).transpose(0, 2).reshape(after.shape[2], -1)
+    return diff.any(1).nonzero().flatten().tolist()
+
+
+def mesh_lm_serving(torch, dev) -> None:
+    """Phase 16 (c): ``DRYRUN_MESH_LM``'s prefill and decode steps at their
+    published widths in bfloat16, depth cut, through ``CellProgram.step``
+    given DTensor parameters on a (1, 1) NCCL process mesh (``_mesh_lm_
+    serve``: ``transformer.forward`` / ``serve_step`` with a shard
+    context) against the unmeshed step on the same weights and inputs,
+    under deterministic algorithms: hidden states, next tokens and the
+    cache (random, written at pos - 1) equal bit for bit.  It makes and
+    destroys its own process group."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import InputSpec
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import (build_cell, init_inputs,
+                                          place_inputs, place_params)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.rules import set_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    i32 = torch.int32
+
+    def cut(arch, cell, depth, batch, seq):
+        prog = build_cell(arch, cell, device=dev)
+        cfg = prog.config
+        cfg = dataclasses.replace(cfg, n_layers=depth, n_dense_layers=min(
+            cfg.n_dense_layers, depth - 1 if cfg.is_moe else 0))
+        if prog.kind == "lm_prefill":
+            specs = {"tokens": InputSpec((batch, seq), i32)}
+        else:
+            cache = {key: {name: InputSpec(tuple(t.shape), t.dtype)
+                           for name, t in stack.items()}
+                     for key, stack in tfm.cache_shapes(cfg, batch,
+                                                        seq).items()}
+            specs = {"cache": cache, "tokens": InputSpec((batch,), i32),
+                     "pos": InputSpec((), i32)}
+        return dataclasses.replace(prog, config=cfg, input_specs=specs)
+
+    t0 = time.perf_counter()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    mesh = make_process_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        for arch, (depth, seq, batch, length) in DRYRUN_MESH_LM.items():
+            gen = torch.Generator(device=dev).manual_seed(SEED + 165)
+            pre = cut(arch, "prefill_32k", depth, 1, seq)
+            dec = cut(arch, "decode_32k", depth, batch, length)
+            model = pre.init_params(gen)
+            tokens = init_inputs(pre, gen)
+            inputs = init_inputs(dec, gen)
+            inputs["cache"] = tree_map(
+                lambda t: (torch.randn(t.shape, generator=gen, device=dev)
+                           * 0.5).to(t.dtype), inputs["cache"])
+            inputs["pos"] = torch.tensor(length - 3, dtype=i32, device=dev)
+            want_h = pre.step(model, tokens)
+            plain_in = tree_map(torch.clone, inputs)
+            want_tok, want_cache = dec.step(model, plain_in)
+            with set_mesh(mesh):
+                params = place_params(pre, model.params(), mesh)
+                got_h = pre.step(None, params, place_inputs(pre, tokens))
+                placed = place_inputs(dec, tree_map(torch.clone, inputs))
+                got_tok, got_cache = dec.step(None, params, placed)
+            got_h, got_tok = got_h.to_local(), got_tok.to_local()
+            got_cache = tree_map(lambda t: t.to_local(), got_cache)
+            torch.cuda.synchronize()
+            same_h = torch.equal(got_h, want_h)
+            same_tok = torch.equal(got_tok, want_tok)
+            same_cache = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got_cache), tree_leaves(want_cache)))
+            moved = {p for a, b in zip(tree_leaves(want_cache),
+                                       tree_leaves(inputs["cache"]))
+                     for p in written_at(a, b)}
+            log(f"[dryrun mesh lm] {arch}, {depth} layers, bfloat16: "
+                f"prefill 1 x {seq:,} meshed == unmeshed "
+                f"{'bit for bit' if same_h else 'NOT EQUAL'} (max |diff| "
+                f"{float((got_h.float() - want_h.float()).abs().max()):.3e})"
+                f"; decode batch {batch} over a {length:,}-position cache: "
+                f"next tokens {'equal' if same_tok else 'NOT EQUAL'}, cache "
+                f"{'equal' if same_cache else 'NOT EQUAL'} bit for bit, "
+                f"written at {sorted(moved)} (pos - 1 = {length - 4})")
+            if not (same_h and same_tok and same_cache):
+                raise AssertionError(f"{arch}: a meshed LM serving step at "
+                                     f"world 1 differs from the unmeshed one")
+            if moved != {length - 4}:
+                raise AssertionError(f"{arch}: decode wrote positions "
+                                     f"{sorted(moved)}, not {length - 4}")
+            del model, params, placed, inputs, plain_in, want_cache, got_cache
+            del want_h, got_h, tokens
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()
+    log(f"[dryrun mesh lm] {time.perf_counter() - t0:.1f} s")
 
 
 def tuning(torch, dev, chunk, fams, plain_out: dict, ctx: dict) -> dict:

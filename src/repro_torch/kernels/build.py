@@ -13,7 +13,8 @@ rebuilds and a rerun reuses the library.  ``build_all`` starts one
 whose output tiles are instantiated several times over, also splits its
 own compilation across the host's cores (``EXTRA_FLAGS``).  Every C entry
 returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
-Nothing here runs at import time.
+Nothing is built at import time; each kernel module registers its
+launchers as operators (``kernel_op``).
 """
 
 from __future__ import annotations
@@ -159,6 +160,24 @@ def install(name: str, lib: ctypes.CDLL) -> None:
     timing another checkout's kernel through this checkout's wrappers)."""
     with _LOCK:
         _LIBS[name] = lib
+
+
+# the kernels as operators of the "repro_torch" namespace (``kernel_op``)
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def kernel_op(schema: str, launch, outputs):
+    """Register the operator ``repro_torch::<schema>`` and return it:
+    ``launch`` runs it on CUDA tensors (allocates its results, launches
+    the kernel, counts the launch), ``outputs`` on meta and fake tensors
+    (allocates the same results; no library, no launch).  A dispatch mode
+    sees a call as one operation with its operands and results, as XLA
+    sees a custom call; CPU tensors have no kernel."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", outputs, lib=_OPS)
+    return getattr(torch.ops.repro_torch, name).default
 
 
 def check(status: int, what: str) -> None:

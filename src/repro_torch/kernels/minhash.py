@@ -109,61 +109,42 @@ def _check_pack(b: int, k: int, group: int) -> None:
                          f"of the launch's group of {group}; got b={b}, k={k}")
 
 
-def _outputs(name, dev, n, k, b, pack, group):
+def _check_b(name: str, b: int) -> None:
     if not 0 <= b <= 32:
         raise ValueError(f"{name}: b must be in [0, 32], got {b}")
-    out = torch.empty((n, k), dtype=torch.int32, device=dev)
-    words = None
-    if pack:
-        _check_pack(b, k, group)
-        words = torch.empty((n, k * b // 32), dtype=torch.int32, device=dev)
-    return out, words
 
 
-def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
-                   variant: str = "high", pack: bool = False,
-                   threads: int = MINHASH_BLK_K):
-    """Launch ``minhash2u_launch`` (csrc/minhash.cu) on the current stream
-    with groups of ``threads``."""
-    n, nnz = indices.shape
-    k = a1.shape[0]
-    threads = check_threads("minhash2u", threads)
-    dev = check_cuda_args("minhash2u", {"indices": (n, nnz), "counts": (n,),
-                                        "a1": (k,), "a2": (k,)},
-                          indices=indices, counts=counts, a1=a1, a2=a2)
-    if not 1 <= s <= 32:
-        raise ValueError(f"minhash2u: need 1 <= s <= 32, got {s}")
-    if variant not in ("high", "low"):
-        raise ValueError(f"minhash2u: variant must be 'high' or 'low', got {variant!r}")
-    out, words = _outputs("minhash2u", dev, n, k, b, pack,
-                          pack_group(False, k, threads))
+def _outputs(indices, k: int, b: int, pack: bool):
+    """The signatures (n, k) and the packed words (n, k * b / 32; no
+    columns without ``pack``) a launch writes."""
+    n = indices.shape[0]
+    new = lambda cols: torch.empty((n, cols), dtype=torch.int32,
+                                   device=indices.device)
+    return new(k), new(k * b // 32 if pack else 0)
+
+
+def _minhash2u_launch(indices, counts, a1, a2, s, high, b, pack, threads):
+    out, words = _outputs(indices, a1.shape[0], b, pack)
+    (n, nnz), k = indices.shape, a1.shape[0]
     if n and k:
+        dev = indices.device
         with torch.cuda.device(dev):
             status = build.library("minhash").minhash2u_launch(
                 indices.data_ptr(), counts.data_ptr(), n, nnz, a1.data_ptr(),
-                a2.data_ptr(), k, s, int(variant == "high"), b, out.data_ptr(),
+                a2.data_ptr(), k, s, int(high), b, out.data_ptr(),
                 words.data_ptr() if pack else None,
                 words.shape[1] if pack else 0, threads,
                 build.stream_handle(dev))
         build.check(status, "minhash2u")
         build.count_launch(minhash2u_cuda)
-    return (out, words) if pack else out
+    return out, words
 
 
-def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
-                   pack: bool = False, threads: int = MINHASH_BLK_K):
-    """Launch ``minhash4u_launch`` (csrc/minhash.cu); ``a`` is (4, k)."""
-    n, nnz = indices.shape
-    k = a.shape[1]
-    threads = check_threads("minhash4u", threads)
-    dev = check_cuda_args("minhash4u", {"indices": (n, nnz), "counts": (n,),
-                                        "a": (4, k)},
-                          indices=indices, counts=counts, a=a)
-    if not 1 <= s <= 31:
-        raise ValueError(f"minhash4u: need 1 <= s <= 31, got {s}")
-    out, words = _outputs("minhash4u", dev, n, k, b, pack,
-                          pack_group(True, k, threads))
+def _minhash4u_launch(indices, counts, a, s, b, pack, threads):
+    out, words = _outputs(indices, a.shape[1], b, pack)
+    (n, nnz), k = indices.shape, a.shape[1]
     if n and k:
+        dev = indices.device
         with torch.cuda.device(dev):
             status = build.library("minhash").minhash4u_launch(
                 indices.data_ptr(), counts.data_ptr(), n, nnz, a.data_ptr(), k,
@@ -172,6 +153,62 @@ def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
                 build.stream_handle(dev))
         build.check(status, "minhash4u")
         build.count_launch(minhash4u_cuda)
+    return out, words
+
+
+_MINHASH2U = build.kernel_op(
+    "minhash2u(Tensor indices, Tensor counts, Tensor a1, Tensor a2, int s, "
+    "bool high, int b, bool pack, int threads) -> (Tensor, Tensor)",
+    _minhash2u_launch,
+    lambda indices, counts, a1, a2, s, high, b, pack, threads:
+        _outputs(indices, a1.shape[0], b, pack))
+_MINHASH4U = build.kernel_op(
+    "minhash4u(Tensor indices, Tensor counts, Tensor a, int s, int b, "
+    "bool pack, int threads) -> (Tensor, Tensor)",
+    _minhash4u_launch,
+    lambda indices, counts, a, s, b, pack, threads:
+        _outputs(indices, a.shape[1], b, pack))
+
+
+def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
+                   variant: str = "high", pack: bool = False,
+                   threads: int = MINHASH_BLK_K):
+    """Launch ``minhash2u_launch`` (csrc/minhash.cu) on the current stream
+    with groups of ``threads`` (the operator ``repro_torch::minhash2u``)."""
+    n, nnz = indices.shape
+    k = a1.shape[0]
+    threads = check_threads("minhash2u", threads)
+    check_cuda_args("minhash2u", {"indices": (n, nnz), "counts": (n,),
+                                  "a1": (k,), "a2": (k,)},
+                    indices=indices, counts=counts, a1=a1, a2=a2)
+    if not 1 <= s <= 32:
+        raise ValueError(f"minhash2u: need 1 <= s <= 32, got {s}")
+    if variant not in ("high", "low"):
+        raise ValueError(f"minhash2u: variant must be 'high' or 'low', got {variant!r}")
+    _check_b("minhash2u", b)
+    if pack:
+        _check_pack(b, k, pack_group(False, k, threads))
+    out, words = _MINHASH2U(indices, counts, a1, a2, s, variant == "high",
+                            b, pack, threads)
+    return (out, words) if pack else out
+
+
+def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
+                   pack: bool = False, threads: int = MINHASH_BLK_K):
+    """Launch ``minhash4u_launch`` (csrc/minhash.cu); ``a`` is (4, k) (the
+    operator ``repro_torch::minhash4u``)."""
+    n, nnz = indices.shape
+    k = a.shape[1]
+    threads = check_threads("minhash4u", threads)
+    check_cuda_args("minhash4u", {"indices": (n, nnz), "counts": (n,),
+                                  "a": (4, k)},
+                    indices=indices, counts=counts, a=a)
+    if not 1 <= s <= 31:
+        raise ValueError(f"minhash4u: need 1 <= s <= 31, got {s}")
+    _check_b("minhash4u", b)
+    if pack:
+        _check_pack(b, k, pack_group(True, k, threads))
+    out, words = _MINHASH4U(indices, counts, a, s, b, pack, threads)
     return (out, words) if pack else out
 
 

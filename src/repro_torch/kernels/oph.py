@@ -96,7 +96,7 @@ def check_cuda_args(name: str, shapes: dict, **tensors) -> torch.device:
     """Raise unless every tensor is a contiguous CUDA int32 tensor of the
     given shape (None in a shape matches any size) on one device."""
     dev = same_device(*tensors.values())
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):   # meta: a trace's shapes only
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {dev}")
     for key, t in tensors.items():
         if t.dtype != torch.int32:
@@ -121,45 +121,34 @@ def _check_oph_statics(name, s, bin_bits, code_b):
         raise ValueError(f"{name}: code_b must be in [0, 16], got {code_b}")
 
 
-def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
-               variant: str = "high", code_b: int = 0,
-               threads: int = OPH_THREADS) -> torch.Tensor:
-    """Launch ``oph2u_launch`` (csrc/oph.cu) on the current stream, a block
-    of ``threads`` a row."""
+def _oph_output(indices, bin_bits: int) -> torch.Tensor:
+    return torch.empty((indices.shape[0], 1 << bin_bits), dtype=torch.int32,
+                       device=indices.device)
+
+
+def _oph2u_launch(indices, counts, a1, a2, s, bin_bits, high, code_b,
+                  threads):
+    out = _oph_output(indices, bin_bits)
     n, nnz = indices.shape
-    threads = check_threads("oph2u", threads)
-    dev = check_cuda_args("oph2u", {"indices": (n, nnz), "counts": (n,),
-                                    "a1": (1,), "a2": (1,)},
-                          indices=indices, counts=counts, a1=a1, a2=a2)
-    _check_oph_statics("oph2u", s, bin_bits, code_b)
-    if variant not in ("high", "low"):
-        raise ValueError(f"oph2u: variant must be 'high' or 'low', got {variant!r}")
-    out = torch.empty((n, 1 << bin_bits), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    dev = indices.device
     with torch.cuda.device(dev):
         status = build.library("oph").oph2u_launch(
             indices.data_ptr(), counts.data_ptr(), n, nnz, a1.data_ptr(),
-            a2.data_ptr(), s, bin_bits, int(variant == "high"), code_b,
+            a2.data_ptr(), s, bin_bits, int(high), code_b,
             out.data_ptr(), threads, build.stream_handle(dev))
     build.check(status, "oph2u")
     build.count_launch(oph2u_cuda)
     return out
 
 
-def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
-               code_b: int = 0, threads: int = OPH_THREADS) -> torch.Tensor:
-    """Launch ``oph4u_launch`` (csrc/oph.cu), ``threads // 2`` threads a
-    row; ``a`` is (4, 1)."""
+def _oph4u_launch(indices, counts, a, s, bin_bits, code_b, threads):
+    out = _oph_output(indices, bin_bits)
     n, nnz = indices.shape
-    threads = check_threads("oph4u", threads)
-    dev = check_cuda_args("oph4u", {"indices": (n, nnz), "counts": (n,),
-                                    "a": (4, 1)},
-                          indices=indices, counts=counts, a=a)
-    _check_oph_statics("oph4u", s, bin_bits, code_b)
-    out = torch.empty((n, 1 << bin_bits), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    dev = indices.device
     with torch.cuda.device(dev):
         status = build.library("oph").oph4u_launch(
             indices.data_ptr(), counts.data_ptr(), n, nnz, a.data_ptr(), s,
@@ -168,6 +157,50 @@ def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
     build.check(status, "oph4u")
     build.count_launch(oph4u_cuda)
     return out
+
+
+_OPH2U = build.kernel_op(
+    "oph2u(Tensor indices, Tensor counts, Tensor a1, Tensor a2, int s, "
+    "int bin_bits, bool high, int code_b, int threads) -> Tensor",
+    _oph2u_launch,
+    lambda indices, counts, a1, a2, s, bin_bits, high, code_b, threads:
+        _oph_output(indices, bin_bits))
+_OPH4U = build.kernel_op(
+    "oph4u(Tensor indices, Tensor counts, Tensor a, int s, int bin_bits, "
+    "int code_b, int threads) -> Tensor",
+    _oph4u_launch,
+    lambda indices, counts, a, s, bin_bits, code_b, threads:
+        _oph_output(indices, bin_bits))
+
+
+def oph2u_cuda(indices, counts, a1, a2, *, s: int, bin_bits: int,
+               variant: str = "high", code_b: int = 0,
+               threads: int = OPH_THREADS) -> torch.Tensor:
+    """Launch ``oph2u_launch`` (csrc/oph.cu) on the current stream, a block
+    of ``threads`` a row (the operator ``repro_torch::oph2u``)."""
+    n, nnz = indices.shape
+    threads = check_threads("oph2u", threads)
+    check_cuda_args("oph2u", {"indices": (n, nnz), "counts": (n,),
+                              "a1": (1,), "a2": (1,)},
+                    indices=indices, counts=counts, a1=a1, a2=a2)
+    _check_oph_statics("oph2u", s, bin_bits, code_b)
+    if variant not in ("high", "low"):
+        raise ValueError(f"oph2u: variant must be 'high' or 'low', got {variant!r}")
+    return _OPH2U(indices, counts, a1, a2, s, bin_bits, variant == "high",
+                  code_b, threads)
+
+
+def oph4u_cuda(indices, counts, a, *, s: int, bin_bits: int,
+               code_b: int = 0, threads: int = OPH_THREADS) -> torch.Tensor:
+    """Launch ``oph4u_launch`` (csrc/oph.cu), ``threads // 2`` threads a
+    row; ``a`` is (4, 1) (the operator ``repro_torch::oph4u``)."""
+    n, nnz = indices.shape
+    threads = check_threads("oph4u", threads)
+    check_cuda_args("oph4u", {"indices": (n, nnz), "counts": (n,),
+                              "a": (4, 1)},
+                    indices=indices, counts=counts, a=a)
+    _check_oph_statics("oph4u", s, bin_bits, code_b)
+    return _OPH4U(indices, counts, a, s, bin_bits, code_b, threads)
 
 
 oph2u_cuda.launches = 0

@@ -163,13 +163,40 @@ def sigbag_plain(tokens: torch.Tensor, table: torch.Tensor,
     return acc.to(table.dtype)
 
 
+def _sigbag_output(tokens, table, row0) -> torch.Tensor:
+    return torch.empty((tokens.shape[0], table.shape[2]), dtype=table.dtype,
+                       device=tokens.device)
+
+
+def _sigbag_launch(tokens, table, row0):
+    out = _sigbag_output(tokens, table, row0)
+    n, k = tokens.shape
+    two_b, d = table.shape[1], table.shape[2]
+    if n and d:
+        dev = tokens.device
+        lib, bf16 = build.library("sigbag"), int(table.dtype == torch.bfloat16)
+        with torch.cuda.device(dev):
+            status = lib.sigbag_shard_launch(
+                tokens.data_ptr(), table.data_ptr(), n, k, two_b, row0, d,
+                bf16, out.data_ptr(), build.stream_handle(dev))
+        build.check(status, "sigbag")
+        build.count_launch(sigbag_cuda)
+    return out
+
+
+_SIGBAG = build.kernel_op(
+    "sigbag(Tensor tokens, Tensor table, int row0) -> Tensor",
+    _sigbag_launch, _sigbag_output)
+
+
 def sigbag_cuda(tokens: torch.Tensor, table: torch.Tensor,
                 row0: int = 0) -> torch.Tensor:
     """Launch ``sigbag_shard_launch`` (csrc/sigbag.cu) on the current
-    stream; returns the same as ``sigbag_plain(tokens, table, row0)``."""
+    stream (the operator ``repro_torch::sigbag``); returns the same as
+    ``sigbag_plain(tokens, table, row0)``."""
     _check_shapes("sigbag", tokens, table)
     dev = same_device(tokens, table)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):   # meta: a trace's shapes only
         raise ValueError(f"sigbag: the CUDA kernel needs CUDA tensors, got "
                          f"{dev}")
     if tokens.dtype != torch.int32:
@@ -185,16 +212,7 @@ def sigbag_cuda(tokens: torch.Tensor, table: torch.Tensor,
     if not 0 <= row0 <= 2**31 - 1 - two_b:
         raise ValueError(f"sigbag: rows [{row0}, {row0} + {two_b}) of a row "
                          "shard must lie in [0, 2^31 - 1)")
-    out = torch.empty((n, d), dtype=table.dtype, device=dev)
-    if n and d:
-        lib, bf16 = build.library("sigbag"), int(table.dtype == torch.bfloat16)
-        with torch.cuda.device(dev):
-            status = lib.sigbag_shard_launch(
-                tokens.data_ptr(), table.data_ptr(), n, k, two_b, row0, d,
-                bf16, out.data_ptr(), build.stream_handle(dev))
-        build.check(status, "sigbag")
-        build.count_launch(sigbag_cuda)
-    return out
+    return _SIGBAG(tokens, table, row0)
 
 
 sigbag_cuda.launches = 0

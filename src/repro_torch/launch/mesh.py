@@ -20,6 +20,14 @@ both (and a third, ``AbstractMesh``, of that surface alone):
     (``roofline.analytic``) sizes collectives by, on a machine of any
     size, as the reference lowers over forced host devices.
 
+``fake_world(shape, axes)`` joins this process, as rank 0, to a world of
+``prod(shape)`` ranks on torch's ``"fake"`` process-group backend (whose
+collectives return at once and move nothing) and yields that rank's
+``ProcessMesh`` on the meta device (``fake_process_mesh``): the dry run
+traces a step there (``roofline.traced``), each rank's shards at their
+production shapes, on one machine.  The group is destroyed on the way
+out, so the caller ends with no process group, as it began.
+
 Production shapes: a single pod (16, 16) over ("data", "model"), and
 multi-pod (2, 16, 16) over ("pod", "data", "model") -- the "pod" axis an
 outer data-parallel axis.
@@ -35,6 +43,7 @@ Defined as functions, so importing this module touches no device.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -319,6 +328,38 @@ def init_process_group(device: DeviceLike = None) -> torch.device:
 
 
 _PROCESS_MESHES: Dict[tuple, ProcessMesh] = {}
+
+
+def fake_process_mesh(shape: Sequence[int],
+                      axes: Sequence[str] = ("data", "model"),
+                      device: DeviceLike = "meta") -> ProcessMesh:
+    """Rank 0's ``ProcessMesh`` of ``shape`` over the current world, which
+    must be a ``"fake"`` one of ``prod(shape)`` ranks (``fake_world``);
+    its tensors live on ``device`` (the meta device: shapes only).  Not
+    cached, unlike ``make_process_mesh``'s."""
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise ValueError("fake_process_mesh needs a 'fake' process group "
+                         "(fake_world)")
+    return ProcessMesh(shape, axes, torch.device(device))
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], axes: Sequence[str] = ("data", "model"),
+               device: DeviceLike = "meta"):
+    """This process as rank 0 of a ``"fake"`` world of ``prod(shape)``
+    ranks, yielding ``fake_process_mesh(shape, axes, device)``; the group
+    is destroyed on exit.  Raises ``RuntimeError`` if a process group
+    exists already (one per process: run it in a child process)."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists in this process; a fake "
+                           "world needs a process without one")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(np.prod(shape)))
+    try:
+        yield fake_process_mesh(shape, axes, device)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_process_mesh(shape: Optional[Sequence[int]] = None,

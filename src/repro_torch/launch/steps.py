@@ -16,10 +16,12 @@ cell's kind as the reference's do:
     step donates them: it writes the new parameters (and Adafactor's
     state) over them, so it holds no second copy;
   * ``lm_prefill``:       ``step(model, inputs) -> (B, S, D)`` final hidden
-    states (``transformer.forward``);
+    states (``transformer.forward``), or ``step(model, params, inputs)``
+    with the parameters given apart;
   * ``lm_decode``:        ``step(model, inputs) -> ((B,) next tokens,
     cache)``, one greedy ``serve_step`` that writes ``inputs["cache"]`` in
-    place at ``inputs["pos"] - 1`` and returns it;
+    place at ``inputs["pos"] - 1`` and returns it, or ``step(model,
+    params, inputs)``;
   * ``recsys_serve``:     ``step(model, inputs) -> (B,) scores``, or
     ``step(model, params, inputs)`` with the parameters given apart;
   * ``recsys_retrieval``: ``step(model, inputs) -> (n_candidates,)
@@ -58,7 +60,10 @@ the gradients left on the shards, the optimizer on the shards
 step there takes a model that carries the config and the frontend's
 coefficients (``RecsysModel.without_weights()``); a recsys serving step
 given DTensor parameters runs the same body (``_mesh_serve``) and returns
-the scores as a DTensor of the rank's rows.
+the scores as a DTensor of the rank's rows.  So does an LM serving step
+(``_mesh_lm_serve``): prefill returns the rank's rows of hidden states,
+decode the rank's next tokens, its cache (the length split over "model")
+written in place at ``pos - 1`` on the rank that holds that position.
 """
 
 from __future__ import annotations
@@ -155,15 +160,15 @@ class CellProgram:
 
     def step(self, model, *args):
         """The cell's step (see the module docstring for its arguments)."""
-        if self.kind == "lm_prefill":
-            (inputs,) = args
+        if self.kind in ("lm_prefill", "lm_decode"):
+            *params, inputs = args
+            params = params[0] if params else model.params()
+            if _is_dtensor(tree_leaves(params)[0]):
+                return _mesh_lm_serve(self, params, inputs)
             with torch.inference_mode():
-                return tfm.forward(model.params(), inputs["tokens"],
-                                   self.config)
-        if self.kind == "lm_decode":
-            (inputs,) = args
-            with torch.inference_mode():
-                return tfm.serve_step(model.params(), inputs["cache"],
+                if self.kind == "lm_prefill":
+                    return tfm.forward(params, inputs["tokens"], self.config)
+                return tfm.serve_step(params, inputs["cache"],
                                       inputs["tokens"], inputs["pos"],
                                       self.config)
         if self.kind in ("recsys_serve", "recsys_retrieval"):
@@ -374,7 +379,13 @@ def place_inputs(program: "CellProgram", batch: Dict[str, Any]):
     if program.kind == "lm_train" and m > 1:
         return {k: constrain(v.reshape(m, v.shape[0] // m, *v.shape[1:]),
                              None, *specs[k]) for k, v in batch.items()}
-    return {k: constrain(v, *specs[k]) for k, v in batch.items()}
+
+    def place(v, spec):        # a decode cache is a tree of specs
+        if isinstance(v, dict):
+            return {k: place(v[k], spec[k]) for k in v}
+        return constrain(v, *spec)
+
+    return place(batch, specs)
 
 
 def _rewrap(like, local):
@@ -441,6 +452,37 @@ def _mesh_serve(prog: "CellProgram", model, params, inputs):
                                           *args)
     return DTensor.from_local(out, mesh.device_mesh,
                               placements_for([rows], mesh), run_check=False)
+
+
+def _mesh_lm_serve(prog: "CellProgram", params, inputs):
+    """An LM prefill or decode step on a process mesh: the body on the
+    local shards (``transformer.forward`` / ``serve_step`` given the
+    shard context), the hidden states or next tokens a DTensor of the
+    rank's rows; decode writes the cache's local chunks in place and
+    returns the cache it was given."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import placements_for
+    mesh = _process_mesh()
+    tokens = inputs["tokens"]
+    rows = _axes_of(tokens, mesh, 0) if _is_dtensor(tokens) else ()
+    sh = spmd.Shards(mesh, rows=rows)
+    ents = _ents(params, mesh)
+    local = _local(inputs)
+    with torch.inference_mode():
+        if prog.kind == "lm_prefill":
+            out = tfm.forward(_local(params), local["tokens"], prog.config,
+                              sh, ents)
+            return DTensor.from_local(out, mesh.device_mesh,
+                                      placements_for([rows], mesh),
+                                      run_check=False)
+        leaf = tree_leaves(inputs["cache"])[0]
+        seq = _axes_of(leaf, mesh, 2) if _is_dtensor(leaf) else ()
+        nxt, _ = tfm.serve_step(_local(params), local["cache"],
+                                local["tokens"], local["pos"], prog.config,
+                                sh, ents, seq)
+    return (DTensor.from_local(nxt, mesh.device_mesh,
+                               placements_for([rows], mesh),
+                               run_check=False), inputs["cache"])
 
 
 def _mesh_step(prog: "CellProgram", model, params, opt_state, inputs):

@@ -17,6 +17,16 @@ output to the activations' type before ``W_uv``, as there.  The per-layer
 
 ``blockwise_attention`` and ``mla_prefill`` are differentiable (LM
 training); ``decode_attention`` and ``mla_decode`` are inference only.
+
+On a process mesh the decode cache's length is split over "model" (the
+reference's decode sequence parallelism): each rank holds a contiguous
+chunk of positions.  ``decode_attention`` and ``mla_decode`` given the
+shard context and those axes (``seq``) then score the rank's chunk, mask
+it by global position, and combine a split softmax across the chunks (a
+``spmd.pmax`` of the maxima, a ``psum`` of the sums, the probabilities
+normalised, a ``psum`` of the weighted values); ``write_at`` writes the
+new token's entry on the rank that holds ``pos - 1`` only, a masked write
+of static shape.  Over one rank they run the single-device arithmetic.
 """
 
 from __future__ import annotations
@@ -73,10 +83,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     output (``aten::bmm.dtype``), through ``MatmulF32`` where a gradient
     is wanted; bfloat16 on the CPU, which has no ``bmm.dtype`` kernel,
     widens both operands to float32 first -- exact, since a product of two
-    bfloat16 values is exact in float32."""
+    bfloat16 values is exact in float32.  Meta operands (a dry-run trace,
+    ``roofline.traced``) take the card's product."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
             return MatmulF32.apply(a, b, _bmm_out_f32)
         return _bmm_out_f32(a, b)
@@ -154,30 +165,88 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, hd_v)
 
 
+def write_at(cache: torch.Tensor, at: torch.Tensor, new: torch.Tensor,
+             shards: Optional[spmd.Shards] = None,
+             seq: spmd.Axes = ()) -> None:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, L, ...) at position
+    ``at`` (a (1,) tensor).  With the length split over ``seq`` the cache
+    holds this rank's chunk of positions: the rank holding ``at`` writes
+    ``new``, the others write back what they hold (no host sync)."""
+    sh = shards or spmd.Shards()
+    if sh.extent(seq) == 1:
+        cache.index_copy_(1, at.long(), new)
+        return
+    L = cache.shape[1]
+    local = at.long() - sh.index(seq) * L
+    idx = local.clamp(0, L - 1)
+    inside = (local >= 0) & (local < L)
+    cache.index_copy_(1, idx, torch.where(inside, new,
+                                          cache.index_select(1, idx)))
+
+
+def _positions(L: int, pos: torch.Tensor, window: Optional[int], lo: int,
+               device) -> torch.Tensor:
+    """Validity of cache positions lo .. lo + L - 1 after a write at
+    pos - 1: filled, and in the current chunk where ``window`` > 0."""
+    idx = torch.arange(L, device=device)
+    if lo:
+        idx = idx + lo
+    valid = idx < pos
+    if window:
+        valid = valid & ((idx // window) == ((pos - 1) // window))
+    return valid
+
+
+def _split_softmax(s: torch.Tensor, sh: spmd.Shards,
+                   seq: Tuple[str, ...]) -> torch.Tensor:
+    """softmax over the last dim of scores split over ``seq`` (masked
+    entries at ``NEG_INF``): the maxima and the sums combined across the
+    chunks, each chunk's probabilities normalised by the global sum."""
+    p = torch.exp(s - spmd.pmax(s.amax(-1, keepdim=True), sh.mesh, seq))
+    return p / spmd.psum(p.sum(-1, keepdim=True), sh.mesh, seq)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     shards: Optional[spmd.Shards] = None,
+                     seq: spmd.Axes = ()) -> torch.Tensor:
     """One-token attention over a KV cache.
 
     q: (B, Hq, hd); caches: (B, L, Hkv, hd); pos: () int -- the number of
     valid cache entries (the new token's K/V already written at pos - 1).
     ``window`` > 0 restricts attention to the current length-``window``
     chunk; 0 / None is full causal.  The whole cache is scored and masked,
-    as in the reference.  Returns (B, Hq, hd) in q's type.
+    as in the reference.  Returns (B, Hq, hd) in q's type.  With the
+    length split over ``seq`` (``shards`` a process mesh's), the caches
+    are this rank's chunk and the softmax is split (module docstring); the
+    result is whole on every rank of ``seq``.
     """
     B, L, Hkv, hd = k_cache.shape
     G = q.shape[1] // Hkv
     qg = q.reshape(B, Hkv, G, hd)
-    idx = torch.arange(L, device=q.device)
-    valid = idx < pos
-    if window:
-        valid = valid & ((idx // window) == ((pos - 1) // window))
+    sh = shards or spmd.Shards()
+    seq = spmd._axes(seq)
+    split = sh.extent(seq) > 1
+    valid = _positions(L, pos, window, sh.index(seq) * L if split else 0,
+                       q.device)
     outs = []
-    for b in range(B):       # a cache row's (Hkv, hd, L) view needs no copy
-        s = matmul_f32(qg[b], k_cache[b].permute(1, 2, 0)).mul_(hd ** -0.5)
-        p = torch.softmax(s.masked_fill_(~valid, NEG_INF), dim=-1)
-        outs.append(matmul_f32(p.to(v_cache.dtype), v_cache[b].transpose(0, 1)))
-    return torch.stack(outs).reshape(B, Hkv * G, hd).to(q.dtype)
+    if not split:
+        for b in range(B):   # a cache row's (Hkv, hd, L) view needs no copy
+            s = matmul_f32(qg[b], k_cache[b].permute(1, 2, 0)).mul_(
+                hd ** -0.5)
+            p = torch.softmax(s.masked_fill_(~valid, NEG_INF), dim=-1)
+            outs.append(matmul_f32(p.to(v_cache.dtype),
+                                   v_cache[b].transpose(0, 1)))
+        return torch.stack(outs).reshape(B, Hkv * G, hd).to(q.dtype)
+    s = torch.stack([matmul_f32(qg[b], k_cache[b].permute(1, 2, 0))
+                     for b in range(B)]).mul_(hd ** -0.5)
+    p = _split_softmax(s.masked_fill_(~valid, NEG_INF), sh, seq)
+    for b in range(B):
+        outs.append(matmul_f32(p[b].to(v_cache.dtype),
+                               v_cache[b].transpose(0, 1)))
+    out = spmd.psum(torch.stack(outs), sh.mesh, seq)
+    return out.reshape(B, Hkv * G, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +303,31 @@ def mla_prefill(x: torch.Tensor, p: dict, *, n_heads: int, d_nope: int,
     return spmd.psum(out, sh.mesh, mt)
 
 
+def whole_cols(sh: spmd.Shards, x: torch.Tensor, w: torch.Tensor,
+               ent) -> torch.Tensor:
+    """``x @ w`` with every column on every rank: column-parallel over
+    "model" where ``w``'s columns are split there, then gathered."""
+    y, split = sh.col(x, w, ent)
+    return spmd.gather(y, -1, sh.mesh, ("model",)) if split else y
+
+
+def out_proj(sh: spmd.Shards, o: torch.Tensor, w: torch.Tensor, ent,
+             n_heads: int) -> torch.Tensor:
+    """``o @ w`` for ``o`` (B, H * d) whole on every rank: row-parallel
+    over "model" (the rank's heads of ``o``, one psum) where ``w``'s rows
+    are split there and the heads divide, else ``w`` gathered whole."""
+    if sh.model_split(ent, 0) and n_heads % sh.tp == 0:
+        mt = ("model",)
+        return spmd.psum(spmd.scatter(o, -1, sh.mesh, mt)
+                         @ sh.use(w, ent, mt), sh.mesh, mt)
+    return o @ sh.use(w, ent)
+
+
 def mla_decode(x: torch.Tensor, p: dict, ckv_cache: torch.Tensor,
                kr_cache: torch.Tensor, pos: torch.Tensor, *, n_heads: int,
-               d_nope: int, d_rope: int, d_v: int, rope_theta: float
+               d_nope: int, d_rope: int, d_v: int, rope_theta: float,
+               shards: Optional[spmd.Shards] = None, ents=spmd.WHOLE,
+               seq: spmd.Axes = ()
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Absorbed-weight MLA decode: attention runs in the compressed space.
 
@@ -246,27 +337,49 @@ def mla_decode(x: torch.Tensor, p: dict, ckv_cache: torch.Tensor,
         out_h   = (sum_t a_t c_kv_t) W_uv_h
     x: (B, D) one token; caches (B, L, kv_lora), (B, L, d_rope), written
     in place at pos - 1.  Returns (attn_out (B, D), ckv_cache, kr_cache).
+
+    On a process mesh (``shards``, ``ents`` the leaves' per-dim axes,
+    ``p`` the rank's shards, ``x`` its rows, the caches its chunk of
+    positions along ``seq``): the projections column-parallel and gathered
+    (every head on every rank, whose chunk of positions they all read),
+    ``wukv`` gathered whole, the softmax split over ``seq``, ``wo``
+    row-parallel over "model".
     """
+    sh = shards or spmd.Shards()
+    e = ents
     B, _ = x.shape
     H = n_heads
     L, kv_lora = ckv_cache.shape[1], ckv_cache.shape[2]
+    seq = spmd._axes(seq)
+    split = sh.extent(seq) > 1
     at = (pos - 1).reshape(1)
-    cq = rms_norm(x @ p["wdq"], p["q_norm"])
-    q = (cq @ p["wuq"]).reshape(B, H, d_nope + d_rope)
+    cq = rms_norm(whole_cols(sh, x, p["wdq"], e["wdq"]),
+                  sh.use(p["q_norm"], e["q_norm"]))
+    q = whole_cols(sh, cq, p["wuq"], e["wuq"]).reshape(B, H,
+                                                        d_nope + d_rope)
     q_rope = apply_rope(q[:, None, :, d_nope:], at, rope_theta)[:, 0]
-    ckv_new = rms_norm(x @ p["wdkv"], p["kv_norm"])
-    kr_new = apply_rope((x @ p["wkr"])[:, None, None, :], at,
-                        rope_theta)[:, 0, 0]
-    ckv_cache.index_copy_(1, at.long(), ckv_new[:, None])
-    kr_cache.index_copy_(1, at.long(), kr_new[:, None])
+    ckv_new = rms_norm(whole_cols(sh, x, p["wdkv"], e["wdkv"]),
+                       sh.use(p["kv_norm"], e["kv_norm"]))
+    kr_new = apply_rope(whole_cols(sh, x, p["wkr"], e["wkr"])[
+        :, None, None, :], at, rope_theta)[:, 0, 0]
+    write_at(ckv_cache, at, ckv_new[:, None], sh, seq)
+    write_at(kr_cache, at, kr_new[:, None], sh, seq)
 
-    wukv = p["wukv"].reshape(kv_lora, H, d_nope + d_v)
+    wukv = sh.use(p["wukv"], e["wukv"]).reshape(kv_lora, H, d_nope + d_v)
     q_c = torch.einsum("bhn,chn->bhc", q[..., :d_nope], wukv[:, :, :d_nope])
     s = (matmul_f32(q_c, ckv_cache.transpose(1, 2))
          + matmul_f32(q_rope, kr_cache.transpose(1, 2))) * (
              (d_nope + d_rope) ** -0.5)
-    valid = torch.arange(L, device=x.device) < pos
-    a = torch.softmax(s.masked_fill_(~valid, NEG_INF), dim=-1)
-    o_c = matmul_f32(a.to(ckv_cache.dtype), ckv_cache)     # (B, H, kv_lora)
+    valid = _positions(L, pos, None, sh.index(seq) * L if split else 0,
+                       x.device)
+    s = s.masked_fill_(~valid, NEG_INF)
+    if split:
+        a = _split_softmax(s, sh, seq)
+        o_c = spmd.psum(matmul_f32(a.to(ckv_cache.dtype), ckv_cache),
+                        sh.mesh, seq)
+    else:
+        a = torch.softmax(s, dim=-1)
+        o_c = matmul_f32(a.to(ckv_cache.dtype), ckv_cache)  # (B, H, kv_lora)
     o = torch.einsum("bhc,chv->bhv", o_c.to(x.dtype), wukv[:, :, d_nope:])
-    return o.reshape(B, H * d_v) @ p["wo"], ckv_cache, kr_cache
+    return (out_proj(sh, o.reshape(B, H * d_v), p["wo"], e["wo"], H),
+            ckv_cache, kr_cache)

@@ -25,8 +25,8 @@ holds the tree as frozen parameters; the functions take the tree
 training differentiates ``train_loss`` with respect to a tree of leaves
 that require a gradient.
 
-On a process mesh, ``forward`` / ``train_loss`` take a shard context
-(``sharding.spmd.Shards``) and each leaf's per-dim axes
+On a process mesh, ``forward`` / ``train_loss`` / ``serve_step`` take a
+shard context (``sharding.spmd.Shards``) and each leaf's per-dim axes
 (``sharding.params.lm_param_specs``) and run the same body on each rank's
 local shards, with explicit collectives: FSDP weights gathered just in
 time over "data", column-parallel (``wq`` ... ``w_up``) and row-parallel
@@ -38,7 +38,10 @@ MoE FFN expert-parallel (``moe._moe_ep_local``).  The reference's
 split over "model" (the remat stash), gathered at the layer's start.
 Heads split over "model" where they divide; an indivisible axis is
 dropped, as ``constrain`` drops it, and the block then runs whole on
-every rank.  Without a mesh every collective is the identity.
+every rank.  Decode keeps its cache's length split over "model"
+(``serve_step``): each rank scores its chunk of positions for every head
+and a split softmax combines them.  Without a mesh every collective is
+the identity.
 """
 
 from __future__ import annotations
@@ -50,11 +53,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (blockwise_attention,
+from repro_torch.models.attention import (whole_cols, blockwise_attention,
                                           decode_attention, mla_decode,
-                                          mla_prefill)
+                                          mla_prefill, out_proj, write_at)
 from repro_torch.models.layers import (TreeModel, apply_rope, normal_init,
-                                       rms_norm, swiglu)
+                                       rms_norm)
 from repro_torch.models.moe import (MoEConfig, init_moe_params, moe_ffn,
                                    swiglu_tp)
 from repro_torch.sharding import spmd
@@ -462,49 +465,88 @@ def cache_shapes(cfg: TransformerConfig, batch: int, max_len: int,
     return _cache_tree(cfg, batch, max_len, dtype or cfg.param_dtype, "meta")
 
 
-def _decode_attn(p: Dict, x: torch.Tensor, cache_l: Dict, pos: torch.Tensor,
-                 cfg: TransformerConfig, window: int) -> torch.Tensor:
+def _decode_attn(sh: spmd.Shards, p: Dict, e, x: torch.Tensor,
+                 cache_l: Dict, pos: torch.Tensor, cfg: TransformerConfig,
+                 window: int, seq: Tuple[str, ...]) -> torch.Tensor:
     """x: (B, D); ``cache_l``: this layer's cache views, written at
-    pos - 1."""
+    pos - 1 (on a mesh: the rank's chunk of positions along ``seq``)."""
     B, _ = x.shape
     if cfg.attention == "mla":
         out, _, _ = mla_decode(x, p, cache_l["ckv"], cache_l["kr"], pos,
                                n_heads=cfg.n_heads, d_nope=cfg.qk_nope,
                                d_rope=cfg.qk_rope, d_v=cfg.v_head,
-                               rope_theta=cfg.rope_theta)
+                               rope_theta=cfg.rope_theta, shards=sh, ents=e,
+                               seq=seq)
         return out
     at = (pos - 1).reshape(1)
-    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv, cfg.head_dim)
+    # every head on every rank: each rank scores its chunk of positions
+    q = whole_cols(sh, x, p["wq"], e["wq"]).reshape(B, 1, cfg.n_heads,
+                                                     cfg.head_dim)
+    k = whole_cols(sh, x, p["wk"], e["wk"]).reshape(B, 1, cfg.n_kv,
+                                                     cfg.head_dim)
+    v = whole_cols(sh, x, p["wv"], e["wv"]).reshape(B, 1, cfg.n_kv,
+                                                     cfg.head_dim)
     q = apply_rope(q, at, cfg.rope_theta)[:, 0]
     k = apply_rope(k, at, cfg.rope_theta)
-    cache_l["k"].index_copy_(1, at.long(), k)
-    cache_l["v"].index_copy_(1, at.long(), v)
-    out = decode_attention(q, cache_l["k"], cache_l["v"], pos, window=window)
-    return out.reshape(B, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    write_at(cache_l["k"], at, k, sh, seq)
+    write_at(cache_l["v"], at, v, sh, seq)
+    out = decode_attention(q, cache_l["k"], cache_l["v"], pos, window=window,
+                           shards=sh, seq=seq)
+    return out_proj(sh, out.reshape(B, cfg.n_heads * cfg.head_dim), p["wo"],
+                    e["wo"], cfg.n_heads)
+
+
+def _greedy(sh: spmd.Shards, x: torch.Tensor, w_out: torch.Tensor,
+            ent) -> torch.Tensor:
+    """argmax over the vocab of ``x @ w_out``, (B,) int32; with the head's
+    columns split over "model" (vocab-parallel), each shard's best value
+    and first index combined: the largest value, the smallest index among
+    the shards that hold it (``torch.argmax``'s first maximum)."""
+    vocab = ("model",) if sh.model_split(ent) else ()
+    logits = x @ sh.use(w_out, ent, vocab)
+    if not vocab:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    best, idx = logits.float().max(dim=-1)
+    lo = sh.index(vocab) * logits.shape[-1]
+    top = spmd.pmax(best, sh.mesh, vocab)
+    total = logits.shape[-1] * sh.extent(vocab)
+    first = torch.where(best == top, idx + lo, total)
+    return (-spmd.pmax(-first, sh.mesh, vocab)).to(torch.int32)
 
 
 def serve_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
-               cfg: TransformerConfig) -> Tuple[torch.Tensor, Dict]:
+               cfg: TransformerConfig, shards: Optional[spmd.Shards] = None,
+               ents=spmd.WHOLE, seq=()) -> Tuple[torch.Tensor, Dict]:
     """One greedy decode step.
 
     tokens: (B,) current tokens; pos: () int (a tensor, or an int) --
     the sequence position of the new token + 1, so cache entries [0, pos)
     are valid after this step.  Writes each layer's cache at pos - 1 in
     place and returns (next_tokens (B,) int32, cache).
+
+    On a process mesh (``shards``; ``params`` the rank's shards, ``ents``
+    their per-dim axes, ``tokens`` and the cache's batch the rank's rows,
+    the cache's length split over ``seq``): weights gathered just in time
+    as ``forward`` gathers them, the projections column-parallel and
+    gathered, attention a split softmax over the rank's chunk of
+    positions, the entry at pos - 1 written on the rank that holds it, the
+    FFN as ``forward``'s (``swiglu_tp``, or ``moe_ffn``'s expert
+    parallelism), the head vocab-parallel.
     """
+    sh = shards or spmd.Shards()
+    seq = spmd._axes(seq)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-    x = params["embed"][tokens.long()]
+    x = sh.use(params["embed"], ents["embed"])[tokens.long()]
     for key, n, moe_layer, first in _stacks(cfg):
+        e = tree_map(lambda t: t[1:], ents[key])     # without the layer dim
         for i in range(n):
             p = _layer(params[key], i)
-            h = rms_norm(x, p["ln1"])
-            x = x + _decode_attn(p["attn"], h, _layer(cache[key], i), pos,
-                                 cfg, _layer_window(cfg, first + i))
-            h = rms_norm(x, p["ln2"])
-            ffn = p["ffn"]
-            x = x + (moe_ffn(ffn, h, cfg.moe) if moe_layer else
-                     swiglu(h, ffn["w_gate"], ffn["w_up"], ffn["w_down"]))
-    x = rms_norm(x, params["final_norm"])
-    return torch.argmax(x @ params["out"], dim=-1).to(torch.int32), cache
+            h = rms_norm(x, sh.use(p["ln1"], e["ln1"]))
+            x = x + _decode_attn(sh, p["attn"], e["attn"], h,
+                                 _layer(cache[key], i), pos, cfg,
+                                 _layer_window(cfg, first + i), seq)
+            h = rms_norm(x, sh.use(p["ln2"], e["ln2"]))
+            x = x + (moe_ffn(p["ffn"], h, cfg.moe, shards=sh, ents=e["ffn"])
+                     if moe_layer else swiglu_tp(h, p["ffn"], e["ffn"], sh))
+    x = rms_norm(x, sh.use(params["final_norm"], ents["final_norm"]))
+    return _greedy(sh, x, params["out"], ents["out"]), cache

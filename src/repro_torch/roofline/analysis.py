@@ -21,12 +21,13 @@ The peak is bfloat16's for the LM family and float32's for GNN and
 recsys cells, which the port runs in float32 with TF32 off.  The link is
 ``hardware.link_for(chips)``'s: InfiniBand past one node, NVLink within
 one, none for one GPU (the term is then 0).  The reference reads its
-counts from XLA's compiled cost analysis and HLO text (taking the larger
-of those and its analytic estimates); torch emits no compiled artifact,
-so ``analyze`` takes them from ``roofline.analytic.estimate`` alone and
-records the HLO entries of ``coll_breakdown`` as ``None``.  The fields
-keep the reference's names (``hlo_flops_per_chip`` ...) so that the dry
-run's records keep its schema.  The dominant term is the projected step
+counts from XLA's compiled cost analysis and HLO text and takes the
+larger of those and its analytic estimates; ``analyze`` does the same
+with the counts of a traced step (``roofline.traced``), given one, and
+otherwise takes ``roofline.analytic.estimate``'s alone, recording the HLO
+entries of ``coll_breakdown`` as ``None``.  The fields keep the
+reference's names (``hlo_flops_per_chip`` ...) so that the dry run's
+records keep its schema.  The dominant term is the projected step
 time; MODEL_FLOPS / FLOPs is the share of the work that is "useful".
 """
 
@@ -194,20 +195,35 @@ def model_flops_for(program, smoke: bool = False) -> float:
 
 
 def analyze(program, mesh, smoke: bool = False,
-            memory_bytes: float = 0.0) -> Roofline:
+            memory_bytes: float = 0.0, traced=None) -> Roofline:
     """The roofline of one step of ``program`` on ``mesh`` (anything with
-    ``shape`` and ``size``: a shape-only ``launch.mesh.abstract_mesh``),
-    its counts from ``roofline.analytic.estimate``; ``memory_bytes`` is
-    the per-GPU footprint the caller measured or placed."""
+    ``shape`` and ``size``: a shape-only ``launch.mesh.abstract_mesh``);
+    ``memory_bytes`` is the per-GPU footprint the caller measured or
+    placed.  ``traced``, a ``roofline.traced.TraceCounts`` of the step
+    on that mesh, gives the counts the reference reads from XLA: each term
+    takes the larger of it and ``roofline.analytic.estimate``'s, and
+    ``coll_breakdown`` keeps the traced collectives by kind
+    (``parsed_hlo_once_per_loop``: the reference's name; the trace counts
+    every layer) and the traced totals (``raw_hlo``)."""
     from repro_torch.roofline.analytic import estimate
     est = estimate(program, mesh)
+    flops, nbytes, coll = est["flops"], est["bytes"], est["coll"]
     breakdown = {"analytic": est["coll_breakdown"],
                  "parsed_hlo_once_per_loop": None, "raw_hlo": None}
+    if traced is not None:
+        raw = (float(traced.flops), float(traced.bytes_accessed),
+               float(traced.coll_total))
+        breakdown["parsed_hlo_once_per_loop"] = traced.breakdown()
+        breakdown["raw_hlo"] = {"flops_per_chip": raw[0],
+                                "bytes_per_chip": raw[1],
+                                "coll_bytes_per_chip": raw[2]}
+        flops, nbytes, coll = (max(flops, raw[0]), max(nbytes, raw[1]),
+                               max(coll, raw[2]))
     return Roofline(
         arch=program.arch_id, cell=program.cell_name,
         mesh="x".join(str(n) for n in mesh.shape.values()), chips=mesh.size,
-        hlo_flops_per_chip=est["flops"], hlo_bytes_per_chip=est["bytes"],
-        coll_bytes_per_chip=est["coll"], coll_breakdown=breakdown,
+        hlo_flops_per_chip=flops, hlo_bytes_per_chip=nbytes,
+        coll_bytes_per_chip=coll, coll_breakdown=breakdown,
         model_flops=model_flops_for(program, smoke),
         memory_per_chip_bytes=memory_bytes, family=program.family,
     ).finalize()

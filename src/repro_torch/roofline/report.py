@@ -4,16 +4,16 @@ of each production mesh.
 
     PYTHONPATH=src python -m repro_torch.roofline.report [--jsonl PATH]
 
-Memory is in GB (1e9 B) a GPU, against the H100's 80 GB of HBM3; a time
-the dry run did not take (``compile_s`` is None: nothing is compiled)
-prints as "–".
+Memory is in GB (1e9 B) a GPU, against the H100's 80 GB of HBM3: the
+total (args + output - alias + temp) and, beside it, the temp of the
+traced step; "compile s" is the trace's seconds.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, Optional
+from typing import Dict
 
 
 def load(path) -> Dict[tuple, dict]:
@@ -26,30 +26,28 @@ def load(path) -> Dict[tuple, dict]:
     return by_key
 
 
-def _secs(s: Optional[float]) -> str:
-    return "–" if s is None else f"{s:.0f}"
-
-
 def dryrun_table(by_key) -> str:
     lines = [
-        "| arch | cell | mesh | status | mem/chip GB | fits 80 GB HBM3 | "
-        "compile s |",
-        "|---|---|---|---|---|---|---|",
+        "| arch | cell | mesh | status | mem/chip GB | temp GB | "
+        "fits 80 GB HBM3 | compile s |",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for (a, c, m), r in sorted(by_key.items()):
         if r["status"] == "skipped":
             lines.append(f"| {a} | {c} | {m} | SKIP: {r['reason'][:40]}… "
-                         f"| – | – | – |")
+                         f"| – | – | – | – |")
             continue
         if r["status"] != "ok":
             lines.append(f"| {a} | {c} | {m} | {r['status']}: "
-                         f"{r.get('error', '')[:40]} | – | – | – |")
+                         f"{r.get('error', '')[:40]} | – | – | – | – |")
             continue
-        mem = r["memory"]["total_per_chip_bytes"] / 1e9
+        mem = r["memory"]
         lines.append(
-            f"| {a} | {c} | {m} | ok | {mem:.2f} | "
-            f"{'yes' if r['memory']['fits_hbm'] else 'no*'} | "
-            f"{_secs(r['compile_s'])} |")
+            f"| {a} | {c} | {m} | ok | "
+            f"{mem['total_per_chip_bytes'] / 1e9:.2f} | "
+            f"{mem['temp_bytes'] / 1e9:.2f} | "
+            f"{'yes' if mem['fits_hbm'] else 'no*'} | "
+            f"{r['compile_s']:.2f} |")
     return "\n".join(lines)
 
 

@@ -55,8 +55,11 @@ Axes = Union[str, Sequence[str], None]
 _all_gather = getattr(fc, "all_gather_single", fc.all_gather_tensor)
 _all_gather_ad = getattr(fc, "all_gather_single_autograd",
                          fc.all_gather_tensor_autograd)
+_reduce_scatter = getattr(fc, "reduce_scatter_single",
+                          fc.reduce_scatter_tensor)
 _reduce_scatter_ad = getattr(fc, "reduce_scatter_single_autograd",
                              fc.reduce_scatter_tensor_autograd)
+
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -162,6 +165,11 @@ def gather(x: torch.Tensor, dim: int, mesh, axes: Axes,
     if _trivial(mesh, axes):
         return x
     dim %= x.dim()
+    # without a gradient recorded (serving) the plain collectives run the
+    # same exchange: torch 2.11's autograd ones have no meta kernel, which
+    # a dry-run trace needs
+    if not torch.is_grad_enabled():
+        return _raw_gather(x, dim, mesh, axes)
     if grad == "sum":
         out = _all_gather_ad(x.contiguous(), dim, mesh.group(axes))
         return _from_group(out, dim, mesh, axes)
@@ -183,8 +191,9 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh, axes: Axes
     if _trivial(mesh, axes):
         return x
     dim %= x.dim()
-    return _reduce_scatter_ad(_to_group(x, dim, mesh, axes).contiguous(),
-                              "sum", dim, mesh.group(axes))
+    fn = _reduce_scatter_ad if torch.is_grad_enabled() else _reduce_scatter
+    return _done(fn(_to_group(x, dim, mesh, axes).contiguous(), "sum", dim,
+                    mesh.group(axes)))
 
 
 def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
@@ -209,9 +218,10 @@ def all_to_all(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     axes = _axes(axes)
     if _trivial(mesh, axes):
         return x
-    out = fc.all_to_all_single_autograd(
-        _to_group(x, 0, mesh, axes).contiguous(), None, None,
-        mesh.group(axes))
+    fn = (fc.all_to_all_single_autograd if torch.is_grad_enabled()
+          else fc.all_to_all_single)
+    out = _done(fn(_to_group(x, 0, mesh, axes).contiguous(), None, None,
+                   mesh.group(axes)))
     return _from_group(out, 0, mesh, axes)
 
 

@@ -233,3 +233,45 @@ def placed(rank, world, shape, xshape, spec):
     assert torch.equal(y.full_tensor(), x)
     return y.to_local().numpy()
 
+
+
+def traced_collectives(rank, world, shape, arch, cell):
+    """One smoke step of ``arch``'s ``cell`` on a (shape) mesh of these
+    ranks, placed as the launcher places it, under
+    ``roofline.traced.StepTrace``: this rank's collectives by kind, with
+    ``_counts``."""
+    from repro_torch.launch.steps import (build_cell, init_inputs,
+                                          init_opt_state)
+    from repro_torch.roofline import traced
+    mesh = _mesh(shape)
+    prog = build_cell(arch, cell, smoke=True, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    model = prog.init_params(gen)
+    batch = init_inputs(prog, gen)
+    shell = model.without_weights() if prog.family == "recsys" else None
+    with set_mesh(mesh):
+        params = steps.place_params(prog, model.params(), mesh)
+        inputs = steps.place_inputs(prog, batch)
+        args = ((params, init_opt_state(prog, params), inputs)
+                if prog.optimizer is not None else (params, inputs))
+        _, counts = traced.trace_step(lambda *a: prog.step(shell, *a), args)
+    return counts.breakdown()
+
+
+def lm_serving(rank, world, shape, arch, cell, capacity_factor, params_np,
+               inputs_np):
+    """An LM ``cell``'s smoke step (prefill or decode, the MoE at
+    ``capacity_factor``) on a (shape) mesh, the handed-over parameters as
+    DTensors: rank 0's whole hidden states, or (next tokens, cache)."""
+    from repro_torch.launch.steps import build_cell
+    mesh = _mesh(shape)
+    prog = build_cell(arch, cell, smoke=True, device="cpu")
+    prog.config = with_capacity(prog.config, capacity_factor)
+    with set_mesh(mesh):
+        params = params_to_mesh(params_np, prog, mesh)
+        inputs = steps.place_inputs(prog, tree_from_numpy(inputs_np, "cpu"))
+        out = prog.step(None, params, inputs)
+    if prog.kind == "lm_prefill":
+        return _whole(out, rank)
+    nxt, cache = out
+    return _whole(nxt, rank), _whole(cache, rank)
