@@ -160,7 +160,7 @@ class ResilientShardClient(ShardClient):
     def __init__(self, inner: ShardClient,
                  policy: ResiliencePolicy = ResiliencePolicy(), *,
                  shard: str = "0", registry=None, tracer=None,
-                 clock=time.monotonic, sleep=time.sleep,
+                 clock=time.perf_counter, sleep=time.sleep,
                  rng: Optional[random.Random] = None):
         self.inner = inner
         self.policy = policy
@@ -479,7 +479,7 @@ class ChaosShardClient(ShardClient):
 def resilient_client_factory(policy: ResiliencePolicy = ResiliencePolicy(),
                              *, inner_factory=None, chaos=None,
                              registry=None, tracer=None,
-                             clock=time.monotonic, sleep=time.sleep,
+                             clock=time.perf_counter, sleep=time.sleep,
                              seed: Optional[int] = None):
     """``client_factory=`` helper stacking resilience (and optionally
     chaos) over per-shard inner clients.

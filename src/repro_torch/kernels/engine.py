@@ -22,10 +22,23 @@ format (port of ``repro.kernels.engine``).
 The OPH epilogue (slice, densify, b bits, pack) is plain PyTorch on the
 device, as the reference's was plain jnp.  The TPU's padding of rows,
 nnz and k to its tiles is gone: kernels take the batch as it is.
+
+Spans: while ``get_tracer().recording()`` (the tracer enabled, or a
+``torch.profiler`` running; asked once a call), each call records
+``sig.engine`` (args ``scheme``, ``rows``, ``nnz``, ``k``, ``b``,
+``threads``, ``shape`` -- ``explicit`` | ``table`` | ``default``, where the
+launch shape came from -- and ``pack`` -- ``kernel`` | ``epilogue`` |
+``none``) with the children ``sig.plan`` (device and shape checks, the
+table lookup), ``sig.counts`` (``nnz_per_row``), ``sig.kernel`` (the
+launcher: argument checks, the operator's dispatch, the launch) and
+``sig.epilogue`` (the plain-PyTorch work after the kernel; absent where
+there is none).  The permutation runner, which runs no kernel, records
+``sig.engine`` and ``sig.plan`` only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -45,6 +58,7 @@ from repro_torch.kernels import minhash as kmin
 from repro_torch.kernels import oph as koph
 from repro_torch.kernels.pack import (PackSpec, can_pack_in_kernel,
                                       pack_device, unpack_device)
+from repro_torch.obs.trace import get_tracer
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +337,26 @@ class SignatureEngine:
         """The launch shape for a batch ``nnz`` wide: explicit ``blocks``
         > the table's entry > the kernel's default ({} where no kernel
         runs: a permutation base)."""
+        return self._shape(nnz)[0]
+
+    def _shape(self, nnz: int):
+        """(the launch shape, where it came from: ``explicit`` | ``table``
+        | ``default``)."""
         if self._blocks:
-            return dict(self._blocks)
+            return dict(self._blocks), "explicit"
         if self.scheme not in DEFAULT_BLOCKS:
-            return {}
+            return {}, "default"
         table = self._tuning or default_tuning_table()
         hit = table.lookup(self.backend, self.scheme, self.statics["k"], nnz)
-        return dict(hit or DEFAULT_BLOCKS[self.scheme])
+        if hit:
+            return dict(hit), "table"
+        return dict(DEFAULT_BLOCKS[self.scheme]), "default"
 
     def plan_for(self, nnz: int) -> SignaturePlan:
-        blocks = self.blocks_for(nnz)
+        return self._plan(nnz)[0]
+
+    def _plan(self, nnz: int):
+        blocks, source = self._shape(nnz)
         if self.scheme not in DEFAULT_BLOCKS:
             if blocks:
                 raise ValueError(f"{self.scheme} runs no kernel: it takes no "
@@ -341,14 +365,30 @@ class SignatureEngine:
         else:
             threads = check_blocks(self.scheme, blocks)
         return SignaturePlan(b=self.b, packed=self.packed, threads=threads,
-                             **self.statics)
+                             **self.statics), source
 
     # -- execution ------------------------------------------------------
-    def _run(self, batch: SparseBatch, packed: bool):
+    def _checked_plan(self, batch: SparseBatch):
         if same_device(batch.indices, batch.mask) != self.device:
             raise ValueError(f"batch on {batch.device}, family on {self.device}")
-        plan = self.plan_for(batch.indices.shape[1])
-        return plan, self._runner(self, batch, plan, packed=packed)
+        return self._plan(batch.indices.shape[1])
+
+    def _run(self, batch: SparseBatch, packed: bool):
+        tracer = get_tracer()
+        if not tracer.recording():
+            plan = self._checked_plan(batch)[0]
+            return plan, self._runner(self, batch, plan, packed=packed,
+                                      span=_untraced)
+        n, nnz = batch.indices.shape
+        with tracer.program_span("sig.engine", args={
+                "scheme": self.scheme, "rows": n, "nnz": nnz,
+                "k": self.statics["k"], "b": self.b}) as top:
+            with tracer.program_span("sig.plan"):
+                plan, source = self._checked_plan(batch)
+            top.args.update(threads=plan.threads, shape=source,
+                            pack=_pack_mode(plan, packed))
+            return plan, self._runner(self, batch, plan, packed=packed,
+                                      span=tracer.program_span)
 
     def signatures(self, batch: SparseBatch) -> torch.Tensor:
         """(n, k) int32 signature values (b-bit masked when b > 0)."""
@@ -364,9 +404,34 @@ class SignatureEngine:
             else self.signatures(batch)
 
 
-def _run_minhash(eng, batch, plan, *, packed):
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _untraced(name: str):
+    return _NO_SPAN
+
+
+def _fused_pack(plan: SignaturePlan) -> bool:
+    """Whether the minhash kernel's epilogue packs the words: it fills
+    groups of the launch's block, as the kernel cuts it."""
+    group = kmin.pack_group(plan.family == "4u", plan.k, plan.threads)
+    k_pad = -(-plan.k // group) * group
+    return can_pack_in_kernel(k_pad, plan.k, plan.b, group)
+
+
+def _pack_mode(plan: SignaturePlan, packed: bool) -> str:
+    """Where a call's pack runs: ``kernel`` | ``epilogue`` | ``none``."""
+    if not packed:
+        return "none"
+    if plan.scheme == "minhash" and _fused_pack(plan):
+        return "kernel"
+    return "epilogue"
+
+
+def _run_minhash(eng, batch, plan, *, packed, span):
     fam = eng.family_obj
-    counts = batch.nnz_per_row()
+    with span("sig.counts"):
+        counts = batch.nnz_per_row()
     kw = dict(s=plan.s, b=plan.b, threads=plan.threads)
     if plan.family == "2u":
         run = lambda **pk: kmin.minhash2u(batch.indices, counts, fam.a1,
@@ -375,34 +440,40 @@ def _run_minhash(eng, batch, plan, *, packed):
     else:
         run = lambda **pk: kmin.minhash4u(batch.indices, counts, fam.a, **kw,
                                           **pk)
-    # the fused pack fills groups of the launch's block, as the kernel cuts it
-    group = kmin.pack_group(plan.family == "4u", plan.k, plan.threads)
-    k_pad = -(-plan.k // group) * group
-    if packed and can_pack_in_kernel(k_pad, plan.k, plan.b, group):
-        return run(pack=True)[1]
-    out = run()
-    return pack_device(out, PackSpec(plan.k, plan.b)) if packed else out
+    if packed and _fused_pack(plan):
+        with span("sig.kernel"):
+            return run(pack=True)[1]
+    with span("sig.kernel"):
+        out = run()
+    if not packed:
+        return out
+    with span("sig.epilogue"):
+        return pack_device(out, PackSpec(plan.k, plan.b))
 
 
-def _run_oph(eng, batch, plan, *, packed):
+def _run_oph(eng, batch, plan, *, packed, span):
     base = eng.family_obj.base
-    counts = batch.nnz_per_row()
+    with span("sig.counts"):
+        counts = batch.nnz_per_row()
     bin_bits = plan.k.bit_length() - 1
     # packed sentinel: the kernel's epilogue emits the (b+1)-bit codes and
     # only the bitstream pack remains; otherwise raw minima + epilogue
     coded = packed and plan.sentinel
     code_b = plan.b if coded else 0
-    if plan.family == "2u":
-        raw = koph.oph2u(batch.indices, counts, base.a1, base.a2, s=plan.s,
-                         bin_bits=bin_bits, variant=plan.variant,
-                         code_b=code_b, threads=plan.threads)
-    else:
-        raw = koph.oph4u(batch.indices, counts, base.a, s=plan.s,
-                         bin_bits=bin_bits, code_b=code_b,
-                         threads=plan.threads)
-    return oph_epilogue(raw, k=plan.k, s=plan.s, bin_bits=bin_bits,
-                        densify=plan.densify, b=plan.b, packed=packed,
-                        coded=coded)
+    with span("sig.kernel"):
+        if plan.family == "2u":
+            raw = koph.oph2u(batch.indices, counts, base.a1, base.a2,
+                             s=plan.s, bin_bits=bin_bits,
+                             variant=plan.variant, code_b=code_b,
+                             threads=plan.threads)
+        else:
+            raw = koph.oph4u(batch.indices, counts, base.a, s=plan.s,
+                             bin_bits=bin_bits, code_b=code_b,
+                             threads=plan.threads)
+    with span("sig.epilogue"):
+        return oph_epilogue(raw, k=plan.k, s=plan.s, bin_bits=bin_bits,
+                            densify=plan.densify, b=plan.b, packed=packed,
+                            coded=coded)
 
 
 def oph_epilogue(raw: torch.Tensor, *, k: int, s: int, bin_bits: int,
@@ -419,7 +490,7 @@ def oph_epilogue(raw: torch.Tensor, *, k: int, s: int, bin_bits: int,
     return pack_device(sig, spec) if packed else sig
 
 
-def _run_oph_perm(eng, batch, plan, *, packed):
+def _run_oph_perm(eng, batch, plan, *, packed, span):
     # permutation base: the gold-standard plain reference (small D only)
     sig = oph_signatures(batch.indices, batch.mask, eng.family_obj, b=plan.b)
     return pack_device(sig, plan.pack_spec) if packed else sig

@@ -114,8 +114,8 @@ class PendingResult:
     def __init__(self, query, query_size, deadline: Optional[float]):
         self.query = query
         self.query_size = query_size
-        self.t_submit = time.monotonic()
-        self.deadline = deadline          # absolute monotonic time, or None
+        self.t_submit = time.perf_counter()
+        self.deadline = deadline          # absolute perf-counter time, or None
         self.queue_wait_s: Optional[float] = None
         self.latency_s: Optional[float] = None
         self.outcome = "pending"
@@ -144,7 +144,7 @@ class PendingResult:
         self._result = result
         self._error = error
         self.outcome = outcome
-        self.latency_s = time.monotonic() - self.t_submit
+        self.latency_s = time.perf_counter() - self.t_submit
         self._event.set()
 
 
@@ -238,7 +238,7 @@ class ServerStats:
             out[f"{name}_p50_ms"] = _percentile(vals, 50) * 1e3
             out[f"{name}_p99_ms"] = _percentile(vals, 99) * 1e3
         out["worker_flushes"] = flushes
-        elapsed = (time.monotonic() - t_start) if t_start else None
+        elapsed = (time.perf_counter() - t_start) if t_start else None
         out["worker_occupancy"] = [
             (b / elapsed if elapsed and elapsed > 0 else float("nan"))
             for b in busy]
@@ -317,7 +317,7 @@ def _server_samples(server: "SearchServer"):
                  float(len(server._queue)))
     yield Sample("serve_workers", "gauge", "dispatch workers", (),
                  float(st.workers))
-    elapsed = (time.monotonic() - t_start) if t_start else None
+    elapsed = (time.perf_counter() - t_start) if t_start else None
     for i in range(len(flushes)):
         lbl = (("worker", str(i)),)
         yield Sample("serve_worker_flushes_total", "counter",
@@ -481,7 +481,7 @@ class SearchServer:
         if self._threads:
             raise RuntimeError("server already started")
         self._stopping = False
-        self.stats.t_start = time.monotonic()
+        self.stats.t_start = time.perf_counter()
         self._handles = [_WorkerHandle(self.searcher, self.on_shard_failure)
                          for _ in range(self.num_workers)]
         self._threads = [
@@ -525,7 +525,7 @@ class SearchServer:
         if not self._threads:
             raise RuntimeError("server not started (use `with server:` "
                                "or call start())")
-        deadline = (time.monotonic() + deadline_s
+        deadline = (time.perf_counter() + deadline_s
                     if deadline_s is not None else None)
         req = PendingResult(query, query_size, deadline)
         with self._cond:
@@ -548,7 +548,7 @@ class SearchServer:
                                      args={"deadline_s": deadline_s})
             root.trace_id = root.span_id
             req.trace = root
-            req.t_admit = time.monotonic()
+            req.t_admit = time.perf_counter()
             tracer.add_span("admission", req.t_submit, req.t_admit,
                             parent=root, kind="async",
                             args={"policy": self.admission,
@@ -640,7 +640,7 @@ class SearchServer:
             if self._stopping:
                 trigger = "drain"
                 break
-            now = time.monotonic()
+            now = time.perf_counter()
             if len(self._queue) >= self.max_batch:
                 trigger = "full"
                 break
@@ -703,7 +703,7 @@ class SearchServer:
 
     def _flush_batch(self, batch: List[PendingResult], trigger: str,
                      wi: int, handle: _WorkerHandle) -> None:
-        t0 = time.monotonic()
+        t0 = time.perf_counter()
         stats = self.stats
         tracer = self.tracer
         degraded = bool(batch[0].degrade and self.mode == "exact")
@@ -766,9 +766,9 @@ class SearchServer:
         # dispatch, top-k merge, ...): replayed below as children of every
         # co-batched request's span tree
         phases = tracer.take_phases() if tracer.enabled else []
-        dt = time.monotonic() - t0
+        dt = time.perf_counter() - t0
         tracer.end_span(wf, t1=t0 + dt)
-        now = time.monotonic()
+        now = time.perf_counter()
         # on_shard_failure="partial": the searcher annotated every row of
         # this flush with the same coverage; < 1 means shards dropped out
         cov = 1.0

@@ -1,5 +1,6 @@
-"""Lightweight span tracing for the serving request path (the port's
-copy of ``repro.obs.trace``; the same spans, tree and trace-event JSON).
+"""Lightweight span tracing for the serving request path and the
+signature engine (the port's copy of ``repro.obs.trace``; the same
+spans, tree and trace-event JSON).
 
 Answers "where did this request's 40 ms go": every admitted request
 grows a span tree -- admission -> queue wait -> worker flush -> the
@@ -17,13 +18,29 @@ Design constraints, in order:
      atomic counter; parent linkage is explicit (``parent=``) or via a
      *thread-local* span stack (``span()`` context manager), so two
      dispatch workers flushing concurrently can never adopt each
-     other's children.  Per-span clocks are monotonic
-     (``time.monotonic``), and completed spans append to the bounded
-     buffer under one lock.
+     other's children.  Completed spans append to the bounded buffer
+     under one lock.
   3. **Cross-thread request trees.**  A request's root span opens on
      the client thread and closes on whichever worker resolved it;
      retroactive children (queue wait is only known at batch pop) are
      recorded with explicit ``t0``/``t1`` via ``add_span``.
+
+**One clock.**  Every time is ``time.perf_counter()`` seconds (``CLOCK``),
+the clock a benchmark or a profiling script reads around its own calls,
+so a span here lines up with theirs without a conversion; it is
+monotonic, and callers that pass ``t0`` / ``t1`` take them from it too.
+On Linux ``time.monotonic`` reads the same ``CLOCK_MONOTONIC``, but not
+on every platform.  The export states the clock and the epoch its
+microseconds count from (``otherData``).
+
+**Program spans.**  ``recording()`` is true while the tracer is enabled
+and also while a ``torch.profiler`` runs on this thread; a caller that
+asks it once per call then opens ``program_span`` spans, which record
+whatever ``enabled`` says.  ``SignatureEngine`` records this way, so a
+profiled run gets its spans with no switch turned.  They go to this
+buffer only: they enter the profiler as ranges only under
+``device_annotations=True`` (a range that encloses kernels also shows on
+the device's timeline, as an activity that launched nothing).
 
 Export: spans marked ``kind="async"`` (the per-request tree) become
 ``ph: "b"``/``"e"`` async event pairs keyed on the request's trace id
@@ -51,9 +68,15 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import torch
+
+CLOCK = "perf_counter"
+_now = time.perf_counter
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
 
 class Span:
-    """One interval: ``[t0, t1]`` monotonic seconds + tree linkage."""
+    """One interval: ``[t0, t1]`` perf-counter seconds + tree linkage."""
 
     __slots__ = ("name", "span_id", "parent_id", "trace_id", "t0", "t1",
                  "tid", "args", "kind")
@@ -91,11 +114,12 @@ class Tracer:
         self.device_annotations = device_annotations
         self.max_events = max_events
         self._lock = threading.Lock()
-        self._events: List[dict] = []
+        self._done: List[tuple] = []      # completed spans, in order
+        self._n_events = 0                # the trace events they make
         self.dropped = 0              # spans lost to the buffer bound
         self._ids = itertools.count(1)
         self._tls = threading.local()
-        self._epoch = time.monotonic()
+        self._epoch = _now()
 
     # -- span construction ----------------------------------------------
     def _stack(self) -> List[Span]:
@@ -117,20 +141,23 @@ class Tracer:
         ``end_span``; may happen on another thread)."""
         if not self.enabled:
             return _NULL_SPAN
+        return self._open(name, parent, trace_id, args, t0, kind)
+
+    def _open(self, name, parent, trace_id, args, t0, kind) -> Span:
         if parent is None:
             parent = self.current()
         pid = parent.span_id if parent is not None else 0
         if trace_id is None:
             trace_id = parent.trace_id if parent is not None else 0
         return Span(name, next(self._ids), pid, trace_id,
-                    time.monotonic() if t0 is None else t0,
+                    _now() if t0 is None else t0,
                     threading.get_ident(), args, kind)
 
     def end_span(self, span: Span, *, t1: Optional[float] = None,
                  args: Optional[dict] = None) -> None:
         if span is _NULL_SPAN or not isinstance(span, Span):
             return
-        span.t1 = time.monotonic() if t1 is None else t1
+        span.t1 = _now() if t1 is None else t1
         if args:
             span.args = {**(span.args or {}), **args}
         self._emit(span)
@@ -151,6 +178,18 @@ class Tracer:
         finally:
             stack.pop()
             self.end_span(sp)
+
+    def recording(self) -> bool:
+        """Whether program spans record now: while the tracer is enabled
+        or a ``torch.profiler`` runs on this thread (~0.1 us to ask)."""
+        return self.enabled or _profiler_enabled()
+
+    def program_span(self, name: str, *,
+                     args: Optional[dict] = None) -> "_ProgramSpan":
+        """A ``span()`` that records whatever ``enabled`` says, for a
+        caller that asked ``recording()`` once for its whole call; a
+        profiler range too under ``device_annotations``."""
+        return _ProgramSpan(self, name, args)
 
     def add_span(self, name: str, t0: float, t1: float, *,
                  parent: Optional[Span] = None,
@@ -196,7 +235,6 @@ class Tracer:
         if not (self.enabled and self.device_annotations):
             yield
             return
-        import torch
         with torch.profiler.record_function(name):
             if not torch.cuda.is_available():
                 yield
@@ -208,39 +246,52 @@ class Tracer:
                 torch.cuda.nvtx.range_pop()
 
     # -- the Chrome trace-event buffer ------------------------------------
-    def _us(self, t: float) -> float:
-        return round((t - self._epoch) * 1e6, 3)
-
+    # A completed span is kept as one tuple, and turned into trace events
+    # only when the buffer is read: recording costs a tuple and a lock.
     def _emit(self, span: Span) -> None:
-        t1 = span.t1 if span.t1 is not None else span.t0
-        dur = max(0.0, t1 - span.t0)         # monotonic per span, clamped
-        args = {"span_id": span.span_id, "parent_id": span.parent_id,
-                "trace_id": span.trace_id, **(span.args or {})}
-        base = {"name": span.name, "pid": os.getpid(), "tid": span.tid,
-                "args": args}
-        if span.kind == "async":
-            events = [
-                {**base, "ph": "b", "cat": "request",
-                 "id": span.trace_id, "ts": self._us(span.t0)},
-                {**base, "ph": "e", "cat": "request",
-                 "id": span.trace_id, "ts": self._us(span.t0 + dur)},
-            ]
-        else:
-            events = [{**base, "ph": "X", "cat": "serve",
-                       "ts": self._us(span.t0),
-                       "dur": round(dur * 1e6, 3)}]
+        n = 2 if span.kind == "async" else 1
+        rec = (span.name, span.span_id, span.parent_id, span.trace_id,
+               span.t0, span.t1 if span.t1 is not None else span.t0,
+               span.tid, span.args, span.kind)
         with self._lock:
-            room = self.max_events - len(self._events)
-            if room < len(events):
+            if self._n_events + n > self.max_events:
                 self.dropped += 1
                 return
-            self._events.extend(events)
+            self._n_events += n
+            self._done.append(rec)
+
+    @staticmethod
+    def _render(rec: tuple, pid: int, epoch: float) -> List[dict]:
+        name, span_id, parent_id, trace_id, t0, t1, tid, sargs, kind = rec
+        us = lambda t: round((t - epoch) * 1e6, 3)
+        dur = max(0.0, t1 - t0)              # monotonic per span, clamped
+        args = {"span_id": span_id, "parent_id": parent_id,
+                "trace_id": trace_id, **(sargs or {})}
+        base = {"name": name, "pid": pid, "tid": tid, "args": args}
+        if kind == "async":
+            return [
+                {**base, "ph": "b", "cat": "request", "id": trace_id,
+                 "ts": us(t0)},
+                {**base, "ph": "e", "cat": "request", "id": trace_id,
+                 "ts": us(t0 + dur)},
+            ]
+        return [{**base, "ph": "X", "cat": "serve", "ts": us(t0),
+                 "dur": round(dur * 1e6, 3)}]
+
+    def _read(self):
+        with self._lock:
+            done, epoch = list(self._done), self._epoch
+        pid = os.getpid()
+        return [ev for rec in done for ev in self._render(rec, pid, epoch)], \
+            epoch
 
     def to_json(self) -> dict:
-        """The buffered events as a Chrome trace-event document."""
-        with self._lock:
-            events = list(self._events)
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        """The buffered events as a Chrome trace-event document; its
+        ``otherData`` names the clock and the epoch (seconds on it) that
+        every ``ts`` counts microseconds from."""
+        events, epoch = self._read()
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"clock": CLOCK, "epoch_s": epoch}}
 
     def export(self, path: str) -> int:
         """Write the buffer as trace-event JSON; returns event count."""
@@ -250,16 +301,43 @@ class Tracer:
         return len(doc["traceEvents"])
 
     def events(self) -> List[dict]:
-        with self._lock:
-            return list(self._events)
+        return self._read()[0]
 
     def reset(self, *, enabled: Optional[bool] = None) -> None:
         with self._lock:
-            self._events = []
+            self._done = []
+            self._n_events = 0
             self.dropped = 0
-            self._epoch = time.monotonic()
+            self._epoch = _now()
         if enabled is not None:
             self.enabled = enabled
+
+
+class _ProgramSpan:
+    """``Tracer.program_span``'s context manager (a class: a generator
+    context manager costs more than the span it times)."""
+
+    __slots__ = ("tracer", "name", "args", "span", "range")
+
+    def __init__(self, tracer: Tracer, name: str, args: Optional[dict]):
+        self.tracer, self.name, self.args = tracer, name, args
+        self.range = None
+
+    def __enter__(self) -> Span:
+        tr = self.tracer
+        self.span = tr._open(self.name, None, None, self.args, None,
+                             "thread")
+        tr._stack().append(self.span)
+        if tr.device_annotations:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        self.tracer._stack().pop()
+        self.tracer.end_span(self.span)
 
 
 def request_tree(events: List[dict]) -> Dict[int, List[dict]]:
