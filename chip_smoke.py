@@ -108,7 +108,9 @@ beside the default and the bound and held bit-exact against the plain
 version; the table it writes steers fresh engines, ``packed_match`` and an
 ``IndexSearcher`` over phase 5's index, and a shape the build lacks is
 refused.  Phase 2's edge chunks and phase 5's odd shapes run at every
-launch shape a table may name.  Scratch data
+launch shape a table may name; each fused pack of phase 2's minhash edge
+chunks runs again into rows with a guard after each, which must come
+back untouched.  Scratch data
 goes to ``build/smoke/`` and is removed at the end.  It exits non-zero,
 with no result line, when there is no CUDA device, when it is not run
 from a checkout, or when any check fails.
@@ -193,14 +195,17 @@ K_OPH, K_MIN, K_PAPER, S, B = 512, 512, 500, 24, 8
 CHUNK = 10_000
 ACC_MARGIN = 0.30      # test accuracy must exceed chance (0.5) by this
 REPS = 7               # timed launches per kernel, after one warm-up
-# minhash4u edge chunk (phase 2): k, row lengths, indices at the domain's edge
+# minhash4u edge chunk (phase 2): k, row lengths, indices at the domain's
+# edge; packed too at EDGE4_PACK_K (k = 100 and 500 leave a ragged warp)
 EDGE_K = 128
+EDGE4_PACK_K = (100, EDGE_K, 500)
 EDGE_ROWS = (1, 2, 3, 4, 5, 31, 100, 1_023, 1_024, 1_025, 2_047, 2_048,
              2_049, 4_096, 5_000)
 EDGE_T = (0, 1, 2**31 - 2, 2**31 - 1)
 # minhash2u edge chunk (phase 2): row lengths, k, s, b; every case in both
-# variants at every launch shape (MINHASH_THREADS), and packed where k is a
-# multiple of the launch's group.  At the default 128 threads k <= 128
+# variants at every launch shape (MINHASH_THREADS), and packed at every k
+# where b | 32 (b = 8; at s = 24 also EDGE2_PACK_B).  At the default 128
+# threads k <= 128
 # runs one function a thread; 256, 500 one block of four a thread; 640 and
 # 1,024 two blocks a row (the second partly live at 640); 32 threads take
 # up to 8 blocks a row, 1,024 one function a thread up to k = 1,024
@@ -208,6 +213,11 @@ EDGE2_ROWS = (0, 1, 2, 3, 4, 5, 31, 2_047, 2_048, 2_049, 5_000)
 EDGE2_K = (1, 33, 64, 128, 256, 500, 640, 1_024)
 EDGE2_S = (1, 24, 31, 32)
 EDGE2_B = (0, 8, 32)
+EDGE2_PACK_B = (1, 2, 4, 16)
+# a fused pack's check launches it again into rows PACK_GUARD words wider
+# than ceil(k b / 32), filled with GUARD_WORD, and reads the gap back
+PACK_GUARD = 64
+GUARD_WORD = 0x5A5A5A5A
 # OPH edge chunk (phase 2): every nnz % 4, and rows longer than one round
 # of 16-byte loads (4,096 indices at 256 threads)
 OPH_EDGE_NNZ = (125, 126, 127, 128, 20_003)
@@ -658,16 +668,58 @@ def sigbag_bound(torch, tok, table) -> tuple:
     return bound(nbytes, n * k * d) + (rows_read,)
 
 
+def fused_pack_guarded(torch, idx, cnt, coef, *, s, b, threads,
+                       high=True) -> tuple:
+    """One launch of ``minhash2u_launch`` (``coef`` = (a1, a2)) or
+    ``minhash4u_launch`` (``coef`` = (a,)) with the fused pack into rows
+    PACK_GUARD words wider than ceil(k b / 32), filled with GUARD_WORD
+    first: returns (signatures, each row's own words, the number of guard
+    words after the rows that changed).  A word stored past a row's end
+    lands in its guard, where a launch into rows of the plain stride would
+    overwrite the next row's first words, or past the last row."""
+    from repro_torch.core.bbit import packed_words
+    from repro_torch.kernels import build
+
+    (n, nnz), k, dev = idx.shape, coef[0].shape[-1], idx.device
+    words = packed_words(k, b)
+    out = torch.empty((n, k), dtype=torch.int32, device=dev)
+    buf = torch.full((n, words + PACK_GUARD), GUARD_WORD, dtype=torch.int32,
+                     device=dev)
+    lib, ptrs = build.library("minhash"), [c.data_ptr() for c in coef]
+    head = (idx.data_ptr(), cnt.data_ptr(), n, nnz)
+    tail = (out.data_ptr(), buf.data_ptr(), buf.shape[1], threads,
+            build.stream_handle(dev))
+    with torch.cuda.device(dev):
+        if len(coef) == 1:
+            status = lib.minhash4u_launch(*head, ptrs[0], k, s, b, *tail)
+        else:
+            status = lib.minhash2u_launch(*head, *ptrs, k, s, int(high), b,
+                                          *tail)
+    build.check(status, "minhash fused pack into guarded rows")
+    return out, buf[:, :words], int((buf[:, words:] != GUARD_WORD).sum())
+
+
+def pack_errors(torch, got, want, idx, cnt, coef, **kw) -> int:
+    """Largest |difference| of a fused-pack launch's (signatures, words)
+    from the plain version's, and of the same launch into guarded rows
+    (``fused_pack_guarded``), plus the guard words it changed."""
+    sig, words, stray = fused_pack_guarded(torch, idx, cnt, coef, **kw)
+    return max(max(max_abs_err(g, w) for g, w in zip(got, want)),
+               max_abs_err(sig, want[0]), max_abs_err(words, want[1]), stray)
+
+
 def check_minhash4u_edges(torch, dev) -> int:
     """``minhash4u`` bit-exact against its plain version where the kernel's
     power-sum form and Horner's rule could part: rows of 1 to 5,000
     nonzeros holding the indices 0, 1, 2^31 - 2 and 2^31 - 1, three rows
     also holding indices >= 2^31 as uint32 (the block-wide Horner flag),
     and coefficient columns >= p (each thread's Horner flag) next to
-    random ones < p; k = 128, b in {0, 8}, pack off and on, s in {24, 31},
-    at every launch shape a table may name (threads in MINHASH_THREADS;
-    pack where k is a multiple of the group).  Returns the number of
-    cases; raises on any difference."""
+    random ones < p; k = 128 with b in {0, 8}, pack off and on, and
+    packed at k = 100 and 500 (a ragged last warp), s in {24, 31}, at
+    every launch shape a table may name (threads in MINHASH_THREADS).
+    Each packed case is launched again into guarded rows
+    (``pack_errors``).  Returns the number of cases; raises on any
+    difference."""
     import numpy as np
 
     from repro_torch.core.u32 import from_numpy
@@ -694,31 +746,38 @@ def check_minhash4u_edges(torch, dev) -> int:
                      [p - 1, p, p + 1, 0, 7, 0],
                      [p, p + 1, 1, p - 1, 9, p],
                      [p + 1, 0, p - 1, p, 2**31, 0]], np.int64)
-    coefs = {
-        "in-domain": rng.integers(0, p, (4, EDGE_K)),
-        "out-of-domain": np.concatenate(
-            [edge, rng.integers(0, p, (4, EDGE_K - edge.shape[1]))], axis=1),
-    }
+
+    def coefs(k):
+        return {"in-domain": rng.integers(0, p, (4, k)),
+                "out-of-domain": np.concatenate(
+                    [edge, rng.integers(0, p, (4, k - edge.shape[1]))],
+                    axis=1)}
+
+    by_k = {EDGE_K: coefs(EDGE_K)}
+    by_k.update({k: coefs(k) for k in EDGE4_PACK_K if k != EDGE_K})
     cases = 0
-    for label, a in coefs.items():
-        a = from_numpy(a, dev)
-        for s in (S, 31):
-            for b, pack in ((0, False), (B, False), (B, True)):
-                want = kmin.minhash4u_plain(idx, cnt, a, s=s, b=b, pack=pack)
-                for threads in kmin.MINHASH_THREADS:
-                    if pack and EDGE_K % kmin.pack_group(True, EDGE_K,
-                                                         threads):
-                        continue
-                    got = kmin.minhash4u_cuda(idx, cnt, a, s=s, b=b,
-                                              pack=pack, threads=threads)
-                    pairs = zip(got, want) if pack else [(got, want)]
-                    err = max(max_abs_err(g, w) for g, w in pairs)
-                    if err:
-                        raise AssertionError(
-                            f"minhash4u edge chunk ({label} coefficients, "
-                            f"s={s}, b={b}, pack={pack}, threads={threads}):"
-                            f" kernel != plain version (max |err| {err})")
-                    cases += 1
+    for k, coef_k in by_k.items():
+        runs = (((0, False), (B, False), (B, True)) if k == EDGE_K
+                else ((B, True),))
+        for label, a in coef_k.items():
+            a = from_numpy(a, dev)
+            for s in (S, 31):
+                for b, pack in runs:
+                    want = kmin.minhash4u_plain(idx, cnt, a, s=s, b=b,
+                                                pack=pack)
+                    for threads in kmin.MINHASH_THREADS:
+                        got = kmin.minhash4u_cuda(idx, cnt, a, s=s, b=b,
+                                                  pack=pack, threads=threads)
+                        err = (pack_errors(torch, got, want, idx, cnt, (a,),
+                                           s=s, b=b, threads=threads)
+                               if pack else max_abs_err(got, want))
+                        if err:
+                            raise AssertionError(
+                                f"minhash4u edge chunk (k={k}, {label} "
+                                f"coefficients, s={s}, b={b}, pack={pack}, "
+                                f"threads={threads}): kernel != plain "
+                                f"version or a guard word changed ({err})")
+                        cases += 1
     return cases
 
 
@@ -738,7 +797,8 @@ def check_minhash2u_edges(torch, dev) -> int:
     lane), coefficient columns (0, 1) and (2^32 - 1, 2^32 - 1); k in
     EDGE2_K, s in EDGE2_S, b in EDGE2_B, variants high and low, each at
     every launch shape a table may name (threads in MINHASH_THREADS),
-    packed too where b = 8 and k is a multiple of the launch's group.
+    packed too at b = 8, and at s = 24 at every b of EDGE2_PACK_B; each
+    packed case is launched again into guarded rows (``pack_errors``).
     Returns the number of cases; raises on any difference."""
     import numpy as np
 
@@ -772,29 +832,28 @@ def check_minhash2u_edges(torch, dev) -> int:
         idx = from_numpy(idx, dev)
         cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
         coef = (from_numpy(a1, dev), from_numpy(a2, dev))
-        packable = [t for t in kmin.MINHASH_THREADS
-                    if k % kmin.pack_group(False, k, t) == 0]
         for s in EDGE2_S:
-            for b in EDGE2_B:
-                packs = (False, True) if packable and b == B else (False,)
+            runs = [(b, False) for b in EDGE2_B] + [(B, True)]
+            if s == S:
+                runs += [(b, True) for b in EDGE2_PACK_B]
+            for b, pack in runs:
                 for variant in ("high", "low"):
-                    for pack in packs:
-                        kw = dict(s=s, b=b, variant=variant, pack=pack)
-                        shapes = packable if pack else kmin.MINHASH_THREADS
-                        want = kmin.minhash2u_plain(idx, cnt, *coef, **kw,
-                                                    threads=shapes[0])
-                        for threads in shapes:
-                            got = kmin.minhash2u_cuda(idx, cnt, *coef, **kw,
-                                                      threads=threads)
-                            pairs = zip(got, want) if pack else [(got, want)]
-                            err = max(max_abs_err(g, w) for g, w in pairs)
-                            if err:
-                                raise AssertionError(
-                                    f"minhash2u edge chunk (k={k}, s={s}, "
-                                    f"b={b}, {variant}, pack={pack}, threads="
-                                    f"{threads}): kernel != plain version "
-                                    f"(max |err| {err})")
-                            cases += 1
+                    kw = dict(s=s, b=b, variant=variant, pack=pack)
+                    want = kmin.minhash2u_plain(idx, cnt, *coef, **kw)
+                    for threads in kmin.MINHASH_THREADS:
+                        got = kmin.minhash2u_cuda(idx, cnt, *coef, **kw,
+                                                  threads=threads)
+                        err = (pack_errors(torch, got, want, idx, cnt, coef,
+                                           s=s, b=b, threads=threads,
+                                           high=variant == "high")
+                               if pack else max_abs_err(got, want))
+                        if err:
+                            raise AssertionError(
+                                f"minhash2u edge chunk (k={k}, s={s}, "
+                                f"b={b}, {variant}, pack={pack}, threads="
+                                f"{threads}): kernel != plain version or a "
+                                f"guard word changed ({err})")
+                        cases += 1
     return cases
 
 
@@ -1122,27 +1181,27 @@ def run(torch) -> int:
             coef = (fam.a1, fam.a2) if name == "minhash2u" else (fam.a,)
             cuda_fn = getattr(kmin, f"{name}_cuda")
             plain_fn = getattr(kmin, f"{name}_plain")
-            group = kmin.pack_group(four_u, k, kmin.MINHASH_BLK_K)
-            packs = (False, True) if k % group == 0 else (False,)
-            for pack in packs:
+            for pack in (False, True):
                 plain_out[(name, k, pack)] = check(
                     f"{name} k={k} s={S} b={B} pack={pack}", name,
                     lambda: cuda_fn(idx, cnt, *coef, s=S, b=B, pack=pack),
                     lambda: plain_fn(idx, cnt, *coef, s=S, b=B, pack=pack),
                     minhash_bytes(total_nnz, n, k, four_u, B if pack else 0),
                     minhash_ops(total_nnz, n, k, four_u, B, pack),
-                    main=k == K_PAPER)
+                    main=k == K_PAPER and pack)
     n_edge = check_minhash4u_edges(torch, dev)
-    log(f"[kernel] minhash4u edge chunk: k={EDGE_K}, rows of {EDGE_ROWS[0]} "
-        f"to {EDGE_ROWS[-1]} nonzeros with indices {EDGE_T} and >= 2^31, "
-        f"coefficients < p and >= p, threads 32 to 1024 by 32: bit-exact in "
-        f"all {n_edge} cases")
+    log(f"[kernel] minhash4u edge chunk: k={EDGE_K}, packed also at k in "
+        f"{EDGE4_PACK_K}, rows of {EDGE_ROWS[0]} to {EDGE_ROWS[-1]} nonzeros "
+        f"with indices {EDGE_T} and >= 2^31, coefficients < p and >= p, "
+        f"threads 32 to 1024 by 32, packed rows' guards untouched: bit-exact "
+        f"in all {n_edge} cases")
     n_edge = check_minhash2u_edges(torch, dev)
     log(f"[kernel] minhash2u edge chunk: rows of {EDGE2_ROWS} nonzeros, "
         f"counts < 0 and > nnz, a1 + a2 t wrapping to 0xFFFFFFFF and 0, k in "
         f"{EDGE2_K}, s in {EDGE2_S}, b in {EDGE2_B}, variants high and low, "
-        f"threads 32 to 1024 by 32, pack where k is a multiple of the "
-        f"launch's group: bit-exact in all {n_edge} cases")
+        f"threads 32 to 1024 by 32, packed at every k (b = {B}; at s = {S} "
+        f"also b in {EDGE2_PACK_B}), packed rows' guards untouched: "
+        f"bit-exact in all {n_edge} cases")
     n_edge = check_oph_edges(torch, dev)
     log(f"[kernel] oph2u / oph4u edge chunk: nnz in {OPH_EDGE_NNZ}, aligned "
         f"and unaligned base, counts 0 to nnz, < 0 and > nnz, bin_bits in "

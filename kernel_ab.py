@@ -34,9 +34,16 @@ paths' shapes:
     262,144 rows, float32 by CUDA events around one launch (median of 7;
     the window holds the host's launch time too) and both types by a
     CUDA graph of 20 launches; and the frontend as served, ``minhash2u``
-    (512 rows x 128 nonzeros, k = 64) into ``sigbag`` (a graph of 20).
+    (512 rows x 128 nonzeros, k = 64) into ``sigbag`` (a graph of 20);
+  * ``minhash2u`` / ``minhash4u`` on the same chunk with the fused pack
+    (b = 8) at k = 500 (a ragged last warp, the main path) and k = 512
+    (whole groups), and at the batch-learning path's k = 200, b = 0 on
+    the tuned 64 threads.
 
-Every output of the change is held bit-exact against the parent's, and
+Every output of the change is held bit-exact against the parent's (but
+the packed words at k = 500, which a parent from before the ragged pack
+leaves partly unwritten: the change's are held to ``pack_codes`` of its
+own unpacked k = 500 codes), and
 the change against the plain versions on ``chip_smoke.py``'s edge chunks
 (``minhash4u``, ``minhash2u``, ``oph2u`` / ``oph4u``), packed-match odd
 shapes and ``sigbag`` edge set.  To compare another design, pass its checkout as ``--parent``
@@ -257,6 +264,32 @@ def main(argv=None) -> int:
             kmin.minhash2u_cuda(rid, rcnt, f2r.a1, f2r.a2, s=cs.S, b=cs.B),
             sig_tables["float32"]), "graph", None)
 
+    # the fused pack on the chunk, and the tuned batch-learning launches
+    gen = torch.Generator().manual_seed(cs.SEED + 54)
+    for k in (cs.K_PAPER, cs.K_MIN, cs.K_BATCH):
+        g2 = make_family("2u", k, cs.S, generator=gen, device=dev)
+        g4 = make_family("4u", k, cs.S, generator=gen, device=dev)
+        b, kw = ((0, dict(threads=64)) if k == cs.K_BATCH
+                 else (cs.B, dict(pack=True)))
+        tag = "b=0 threads=64" if k == cs.K_BATCH else "pack"
+        cases[f"minhash2u k={k} {tag}"] = (
+            lambda g2=g2, b=b, kw=kw: kmin.minhash2u_cuda(
+                idx, cnt, g2.a1, g2.a2, s=cs.S, b=b, **kw), "graph",
+            cs.bound(cs.minhash_bytes(total_nnz, n, k, False, b and cs.B),
+                     cs.minhash_ops(total_nnz, n, k, False, b, b > 0)))
+        cases[f"minhash4u k={k} {tag}"] = (
+            lambda g4=g4, b=b, kw=kw: kmin.minhash4u_cuda(
+                idx, cnt, g4.a, s=cs.S, b=b, **kw), "events",
+            cs.bound(cs.minhash_bytes(total_nnz, n, k, True, b and cs.B),
+                     cs.minhash_ops(total_nnz, n, k, True, b, b > 0)))
+        if k == cs.K_PAPER:
+            ragged = {f"minhash2u k={k} pack": (
+                          lambda g2=g2: kmin.minhash2u_cuda(
+                              idx, cnt, g2.a1, g2.a2, s=cs.S, b=cs.B)),
+                      f"minhash4u k={k} pack": (
+                          lambda g4=g4: kmin.minhash4u_cuda(
+                              idx, cnt, g4.a, s=cs.S, b=cs.B))}
+
     # one launch by CUDA events beside each graph-timed chunk kernel
     for name in ("oph2u k=512", "oph4u k=512", "minhash2u k=500"):
         cases[f"{name} single"] = (cases[name][0], "events", None)
@@ -267,11 +300,21 @@ def main(argv=None) -> int:
         use(tag)
         outs[tag] = {name: fn() for name, (fn, how, _) in cases.items()
                      if how != "eager" and not name.endswith(" single")}
-    for name in outs["change"]:
-        if not torch.equal(outs["change"][name], outs["parent"][name]):
+    same = [name for name in outs["change"] if name not in ragged]
+    parts = lambda out: out if isinstance(out, tuple) else (out,)
+    for name in same:
+        if not all(torch.equal(c, p) for c, p in zip(
+                parts(outs["change"][name]), parts(outs["parent"][name]))):
             raise AssertionError(f"{name}: change != parent")
-    print(f"[ab] change == parent bit for bit: {', '.join(outs['change'])}",
-          flush=True)
+    print(f"[ab] change == parent bit for bit: {', '.join(same)}", flush=True)
+    for name, unpacked in ragged.items():
+        sig, words = outs["change"][name]
+        want = unpacked()
+        if not (torch.equal(sig, want)
+                and torch.equal(words, pack_codes(want, cs.B))):
+            raise AssertionError(f"{name}: change != pack_codes of its codes")
+    print(f"[ab] change == pack_codes of its own unpacked codes: "
+          f"{', '.join(ragged)}", flush=True)
     del outs
     use("change")
     n_edge = cs.check_minhash4u_edges(torch, dev)

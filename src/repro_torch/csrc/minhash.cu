@@ -56,10 +56,14 @@
 //     min) beside 3 IMAD.WIDE.U32 on the FMA pipe: the ALU pipe, at half
 //     the dispatch rate, sets the pace.
 //
-// The epilogue masks to b bits and, when b | 32 and k is a multiple of
-// blockDim.x, packs 32/b consecutive codes into one word with warp
-// shuffles -- the lane-aligned layout of repro.core.bbit.pack_signatures,
-// equal to the pack_codes bitstream.
+// The epilogue masks to b bits and, when b | 32, packs 32/b consecutive
+// codes into one word with warp shuffles -- the lane-aligned layout of
+// repro.core.bbit.pack_signatures, equal to the pack_codes bitstream.  A
+// warp's 32 functions are 32 consecutive j (the stride is a multiple of
+// 32), so a word never spans two warps.  At a ragged k the last live warp
+// packs too: its lanes past k give 0, and a word is stored only where its
+// first code is live, so a row gets exactly ceil(k b / 32) words, zero
+// padded, and nothing lands past its end (the next row's first words).
 #include <cuda_runtime.h>
 #include "hash.cuh"
 
@@ -67,14 +71,17 @@
 #define TILE4 1024  // 4U: nonzeros staged per step, 16 bytes each
 #define JPT 4       // hash functions per thread (2U at k > one group, 4U)
 
-// Pack 32/b consecutive codes of a warp's lanes into one word (every lane
-// of the warp holds a live code j).
+// Pack 32/b consecutive codes of a warp's lanes into one word.  Every
+// lane of the warp calls it, and its first lane's code is live (j < k);
+// a lane past k gives 0, and a word whose first code is past k is not
+// stored.
 __device__ __forceinline__ void pack_codes_warp(uint32_t m, int b, int j,
+                                                int k,
                                                 uint32_t* __restrict__ prow) {
   const int per = 32 / b, lane = threadIdx.x & 31;
-  uint32_t w = m << ((lane % per) * b);
+  uint32_t w = (j < k ? m : 0u) << ((lane % per) * b);
   for (int o = 1; o < per; o <<= 1) w |= __shfl_xor_sync(0xFFFFFFFFu, w, o);
-  if (lane % per == 0) prow[j / per] = w;
+  if (lane % per == 0 && j < k) prow[j / per] = w;
 }
 
 // 2U, J functions a thread: the running min of the raw a1 + a2 t, one
@@ -134,9 +141,9 @@ __global__ void minhash2u_kernel(const int32_t* __restrict__ idx,
     uint32_t v = cnt > 0 ? m[u] >> x : SIG_EMPTY;
     if (b > 0 && b < 32) v &= (1u << b) - 1u;
     if (j < k) out[(size_t)row * k + j] = v;
-    // a warp packs when all its lanes are live (k % 128 == 0 when packing)
-    if (packed != nullptr && (j | 31) < k)
-      pack_codes_warp(v, b, j, packed + (size_t)row * words);
+    // a warp packs when its first lane is live (j & ~31: the warp's first j)
+    if (packed != nullptr && (j & ~31) < k)
+      pack_codes_warp(v, b, j, k, packed + (size_t)row * words);
   }
 }
 
@@ -211,18 +218,18 @@ __global__ void minhash4u_kernel(const int32_t* __restrict__ idx,
   }
 #pragma unroll
   for (int u = 0; u < JPT; ++u) {
-    const int jb = j0 - threadIdx.x + u * blockDim.x;  // the group's first j
-    const int j = jb + threadIdx.x;
+    const int j = j0 + u * blockDim.x;
     uint32_t v = m[u];
     if (b > 0 && b < 32) v &= (1u << b) - 1u;
     if (j < k) out[(size_t)row * k + j] = v;
-    // a group is all live or all past k (k % blockDim.x == 0 when packing)
-    if (packed != nullptr && jb < k)
-      pack_codes_warp(v, b, j, packed + (size_t)row * words);
+    // a warp packs when its first lane is live (j & ~31: the warp's first j)
+    if (packed != nullptr && (j & ~31) < k)
+      pack_codes_warp(v, b, j, k, packed + (size_t)row * words);
   }
 }
 
-// packed may be null (no fused pack); words is its row stride.  threads is
+// packed may be null (no fused pack); words is its row stride, at least
+// ceil(k b / 32).  threads is
 // the group size, a multiple of 32 (cut to k rounded up to 32 when k is
 // smaller).  A thread takes one function when one group covers k (the
 // recsys frontend's k = 64), else JPT groups, so one block covers a row's

@@ -56,8 +56,7 @@ from repro_torch.data.sparse import SparseBatch
 from repro_torch.device import same_device
 from repro_torch.kernels import minhash as kmin
 from repro_torch.kernels import oph as koph
-from repro_torch.kernels.pack import (PackSpec, can_pack_in_kernel,
-                                      pack_device, unpack_device)
+from repro_torch.kernels.pack import PackSpec, pack_device, unpack_device
 from repro_torch.obs.trace import get_tracer
 
 
@@ -307,7 +306,7 @@ class SignatureEngine:
     None), else the kernel's default; ``plan_for`` resolves it.
     ``signatures`` returns (n, k) int32 values (b-bit masked when b > 0);
     ``packed_signatures`` returns ``PackedSignatures``, packed in the
-    minhash kernels' epilogue where the launch's group allows.
+    minhash kernels' epilogue wherever the code width divides 32.
     """
 
     def __init__(self, family, *, b: int = 0, packed: bool = False,
@@ -411,19 +410,11 @@ def _untraced(name: str):
     return _NO_SPAN
 
 
-def _fused_pack(plan: SignaturePlan) -> bool:
-    """Whether the minhash kernel's epilogue packs the words: it fills
-    groups of the launch's block, as the kernel cuts it."""
-    group = kmin.pack_group(plan.family == "4u", plan.k, plan.threads)
-    k_pad = -(-plan.k // group) * group
-    return can_pack_in_kernel(k_pad, plan.k, plan.b, group)
-
-
 def _pack_mode(plan: SignaturePlan, packed: bool) -> str:
     """Where a call's pack runs: ``kernel`` | ``epilogue`` | ``none``."""
     if not packed:
         return "none"
-    if plan.scheme == "minhash" and _fused_pack(plan):
+    if plan.scheme == "minhash" and kmin.can_fuse_pack(plan.b):
         return "kernel"
     return "epilogue"
 
@@ -440,7 +431,7 @@ def _run_minhash(eng, batch, plan, *, packed, span):
     else:
         run = lambda **pk: kmin.minhash4u(batch.indices, counts, fam.a, **kw,
                                           **pk)
-    if packed and _fused_pack(plan):
+    if packed and kmin.can_fuse_pack(plan.b):
         with span("sig.kernel"):
             return run(pack=True)[1]
     with span("sig.kernel"):

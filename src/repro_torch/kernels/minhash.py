@@ -4,13 +4,13 @@ versions (port of ``repro.kernels.minhash``), the paper's §3 kernel.
 ``minhash2u`` / ``minhash4u`` take ``indices (n, nnz) int32``, ``counts
 (n,) int32`` and k hash functions, and return the (n, k) minima as int32
 uint32 bit patterns -- masked to b bits when ``b > 0``; with ``pack=True``
-also the (n, k*b/32) packed words of the fused epilogue, as
-``(sig, words)``.  ``threads`` is the kernel's launch shape (the group
-size, ``MINHASH_BLK_K`` by default; a ``TuningTable`` entry may name
-another): any multiple of 32 in [32, 1024], checked before the device
-dispatch, so a bad value raises on CPU tensors too.  The plain versions
-take it and compute the same values whatever it is; it only decides
-where the fused pack applies (``pack_group``).
+(b | 32, b <= 16, any k) also the (n, ceil(k*b/32)) packed words of the
+fused epilogue, zero padded past k, as ``(sig, words)``.  ``threads`` is
+the kernel's launch shape (the group size, ``MINHASH_BLK_K`` by default;
+a ``TuningTable`` entry may name another): any multiple of 32 in [32,
+1024], checked before the device dispatch, so a bad value raises on CPU
+tensors too.  The plain versions take it and compute the same values
+whatever it is.
 
 CPU tensors go to the plain versions, CUDA tensors to the kernels of
 ``csrc/minhash.cu``.  Each CUDA wrapper counts its launches in
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.bbit import packed_words
 from repro_torch.core.hashing import hash2u_apply, hash4u_apply
 from repro_torch.core.u32 import EMPTY, narrow
 from repro_torch.device import same_device
@@ -31,7 +32,7 @@ from repro_torch.kernels.pack import pack_block
 # threads per block by default, a multiple of 32: four hash functions each
 # (strided by this) in 4U; in 2U one when k <= 128 (k rounded up to 32
 # threads), else four, so that one block covers a row's k <= 512
-# functions; the fused pack packs groups of this many codes
+# functions
 MINHASH_BLK_K = 128
 # every group size a launch may take (a TuningTable entry may name any)
 MINHASH_THREADS = tuple(range(32, 1025, 32))
@@ -49,14 +50,7 @@ def check_threads(name: str, threads) -> int:
     return int(threads)
 
 
-def pack_group(four_u: bool, k: int, threads: int) -> int:
-    """The codes the fused pack fills as one group: the block ``threads``
-    of 4U, and of 2U cut to k rounded up to 32 as ``minhash2u_launch``
-    cuts it.  The kernel packs only when k is a multiple of it."""
-    return threads if four_u else min(threads, -(-k // 32) * 32)
-
-
-def _minhash_plain(hash_fn, indices, counts, k, *, b, pack, group):
+def _minhash_plain(hash_fn, indices, counts, k, *, b, pack):
     """Row-chunked so the (rows, nnz, k) int64 hash tensor stays <= 1 GB."""
     n, nnz = indices.shape
     counts = counts.reshape(-1).to(torch.int64)
@@ -75,7 +69,7 @@ def _minhash_plain(hash_fn, indices, counts, k, *, b, pack, group):
         out = out & ((1 << b) - 1)
     out = narrow(out)
     if pack:
-        _check_pack(b, k, group)
+        _check_pack(b)
         return out, pack_block(out, b)
     return out
 
@@ -84,29 +78,33 @@ def minhash2u_plain(indices, counts, a1, a2, *, s: int, b: int = 0,
                     variant: str = "high", pack: bool = False,
                     threads: int = MINHASH_BLK_K):
     """Plain PyTorch ``minhash2u``."""
-    k = a1.shape[0]
-    group = pack_group(False, k, check_threads("minhash2u", threads))
+    check_threads("minhash2u", threads)
     fn = lambda t: hash2u_apply(t, a1, a2, s, variant)
-    return _minhash_plain(fn, indices, counts, k, b=b, pack=pack, group=group)
+    return _minhash_plain(fn, indices, counts, a1.shape[0], b=b, pack=pack)
 
 
 def minhash4u_plain(indices, counts, a, *, s: int, b: int = 0,
                     pack: bool = False, threads: int = MINHASH_BLK_K):
     """Plain PyTorch ``minhash4u``; ``a`` is (4, k)."""
-    k = a.shape[1]
-    group = pack_group(True, k, check_threads("minhash4u", threads))
+    check_threads("minhash4u", threads)
     fn = lambda t: hash4u_apply(t, a[0], a[1], a[2], a[3], s)
-    return _minhash_plain(fn, indices, counts, k, b=b, pack=pack, group=group)
+    return _minhash_plain(fn, indices, counts, a.shape[1], b=b, pack=pack)
 
 
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check_pack(b: int, k: int, group: int) -> None:
-    if b <= 0 or 32 % b or b > 16 or k % group:
-        raise ValueError(f"fused pack needs b | 32, b <= 16 and k a multiple "
-                         f"of the launch's group of {group}; got b={b}, k={k}")
+def can_fuse_pack(b: int) -> bool:
+    """True when the kernels' epilogue can pack b-bit codes: lane-aligned
+    codes (b | 32), b <= 16.  Any k and launch shape: a ragged last warp
+    packs its live codes and zero padding."""
+    return 0 < b <= 16 and 32 % b == 0
+
+
+def _check_pack(b: int) -> None:
+    if not can_fuse_pack(b):
+        raise ValueError(f"fused pack needs b | 32 and b <= 16, got b={b}")
 
 
 def _check_b(name: str, b: int) -> None:
@@ -115,12 +113,12 @@ def _check_b(name: str, b: int) -> None:
 
 
 def _outputs(indices, k: int, b: int, pack: bool):
-    """The signatures (n, k) and the packed words (n, k * b / 32; no
-    columns without ``pack``) a launch writes."""
+    """The signatures (n, k) and the packed words (n, ceil(k * b / 32);
+    no columns without ``pack``) a launch writes."""
     n = indices.shape[0]
     new = lambda cols: torch.empty((n, cols), dtype=torch.int32,
                                    device=indices.device)
-    return new(k), new(k * b // 32 if pack else 0)
+    return new(k), new(packed_words(k, b) if pack else 0)
 
 
 def _minhash2u_launch(indices, counts, a1, a2, s, high, b, pack, threads):
@@ -187,7 +185,7 @@ def minhash2u_cuda(indices, counts, a1, a2, *, s: int, b: int = 0,
         raise ValueError(f"minhash2u: variant must be 'high' or 'low', got {variant!r}")
     _check_b("minhash2u", b)
     if pack:
-        _check_pack(b, k, pack_group(False, k, threads))
+        _check_pack(b)
     out, words = _MINHASH2U(indices, counts, a1, a2, s, variant == "high",
                             b, pack, threads)
     return (out, words) if pack else out
@@ -207,7 +205,7 @@ def minhash4u_cuda(indices, counts, a, *, s: int, b: int = 0,
         raise ValueError(f"minhash4u: need 1 <= s <= 31, got {s}")
     _check_b("minhash4u", b)
     if pack:
-        _check_pack(b, k, pack_group(True, k, threads))
+        _check_pack(b)
     out, words = _MINHASH4U(indices, counts, a, s, b, pack, threads)
     return (out, words) if pack else out
 

@@ -6,8 +6,10 @@
   * ``encode_sentinel`` / ``decode_sentinel`` -- EMPTY <-> 2^b.
   * ``pack_device`` / ``unpack_device`` -- the pack / unpack epilogues, in
     plain PyTorch on the tensor's device.
-  * ``can_pack_in_kernel`` -- when the minhash kernels' fused epilogue
-    (``csrc/minhash.cu``, the port of ``pack_block``) may emit the words.
+  * ``can_pack_in_kernel`` -- the reference's rule for its TPU kernels'
+    fused epilogue (whole ``blk_k`` tiles).  The port's CUDA epilogue
+    (``csrc/minhash.cu``, the port of ``pack_block``) also packs a ragged
+    last warp, so it needs only b | 32 (``minhash.can_fuse_pack``).
   * ``pack_block`` -- that epilogue's plain version.
 
 Bit layout (shared with ``repro_torch.core.bbit.pack_codes``): code j
@@ -81,15 +83,16 @@ def unpack_device(packed: torch.Tensor, spec: PackSpec) -> torch.Tensor:
 
 
 def can_pack_in_kernel(k_pad: int, k: int, b: int, blk_k: int) -> bool:
-    """True when the kernel's epilogue can emit packed words directly:
-    lane-aligned codes (b | 32), k a whole number of hash-function blocks
-    (``k_pad``, k rounded up to ``blk_k``, equals k), whole words per
-    block."""
+    """The reference's rule: True when its TPU kernel's epilogue can emit
+    packed words directly: lane-aligned codes (b | 32), k a whole number
+    of hash-function blocks (``k_pad``, k rounded up to ``blk_k``, equals
+    k), whole words per block."""
     return (0 < b <= 16 and 32 % b == 0 and k_pad == k
             and (blk_k * b) % 32 == 0)
 
 
 def pack_block(tile: torch.Tensor, b: int) -> torch.Tensor:
-    """Plain version of the fused epilogue: (rows, blk_k) b-bit codes ->
-    (rows, blk_k*b/32) words.  Equals ``pack_codes`` when b | 32."""
+    """Plain version of the fused epilogue: (rows, k) b-bit codes ->
+    (rows, ceil(k*b/32)) words, zero padded past k.  Equals
+    ``pack_codes`` when b | 32."""
     return pack_signatures(tile, b)

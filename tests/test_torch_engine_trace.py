@@ -71,15 +71,19 @@ def _family(kind, k, seed=5):
 
 # (family, k, b, packed) -> the kernel's scheme, the children recorded
 # and the pack's place; 128 threads by default: the minhash kernels pack
-# groups of 128 (2U: k rounded up to 32), so k = 128 packs in the kernel
-# and k = 100 after it
+# any k whose code width divides 32 (k = 100 and the paper's 500 leave a
+# ragged last warp), and a 3-bit code packs after the kernel
 KERNEL = ("sig.plan", "sig.counts", "sig.kernel")
 CASES = {
     "2u-fused": (("2u", 128, 8, True), "minhash2u", KERNEL, "kernel"),
-    "2u-unfused": (("2u", 100, 8, True), "minhash2u", CHILDREN, "epilogue"),
+    "2u-ragged": (("2u", 100, 8, True), "minhash2u", KERNEL, "kernel"),
+    "2u-k500": (("2u", 500, 8, True), "minhash2u", KERNEL, "kernel"),
+    "2u-unfused": (("2u", 100, 3, True), "minhash2u", CHILDREN, "epilogue"),
     "2u-raw": (("2u", 100, 0, False), "minhash2u", KERNEL, "none"),
     "4u-fused": (("4u", 128, 8, True), "minhash4u", KERNEL, "kernel"),
-    "4u-unfused": (("4u", 100, 8, True), "minhash4u", CHILDREN, "epilogue"),
+    "4u-ragged": (("4u", 100, 8, True), "minhash4u", KERNEL, "kernel"),
+    "4u-k500": (("4u", 500, 8, True), "minhash4u", KERNEL, "kernel"),
+    "4u-unfused": (("4u", 100, 3, True), "minhash4u", CHILDREN, "epilogue"),
     "oph-2u-rotation": (("oph-2u-rotation", 64, 8, True), "oph2u", CHILDREN,
                         "epilogue"),
     "oph-4u-sentinel": (("oph-4u-sentinel", 64, 4, True), "oph4u", CHILDREN,
@@ -149,16 +153,21 @@ def test_shape_arg_names_where_the_launch_shape_came_from(tracer, kind):
 
 
 def test_pack_moves_into_the_kernel_with_the_group(tracer):
-    """k = 96 packs after a 128-thread 4U kernel and in a 32-thread one."""
+    """k = 96 packs in a 128-thread 4U kernel (a ragged group) as in a
+    32-thread one (whole groups); a 3-bit code packs after the kernel
+    whatever the launch shape."""
     tracer.enabled = True
     fam, batch = _family("4u", 96), _batch()
     a = SignatureEngine(fam, b=8, packed=True)(batch)
     b = SignatureEngine(fam, b=8, packed=True, blocks={"threads": 32})(batch)
+    c = SignatureEngine(fam, b=3, packed=True, blocks={"threads": 32})(batch)
     assert torch.equal(a.data, b.data)
+    assert torch.equal(c.unpack(), a.unpack() & 7)
     tree = sorted(_tree(tracer.events()).values(), key=lambda t: t[0]["ts"])
-    assert [t[0]["args"]["pack"] for t in tree] == ["epilogue", "kernel"]
+    assert [t[0]["args"]["pack"] for t in tree] == ["kernel", "kernel",
+                                                    "epilogue"]
     assert ["sig.epilogue" in [e["name"] for e in kids] for _, kids in tree] \
-        == [True, False]
+        == [False, False, True]
 
 
 def test_nested_in_a_callers_span(tracer):

@@ -374,13 +374,17 @@ def test_kernel_ops_on_meta_and_fake_tensors(kind, no_library):
 
 def _kernel_calls(idx, cnt, a, tok, table):
     """name -> (wrapper, plain version, arguments, keywords) of each of
-    the five kernel operators."""
+    the five kernel operators, and of ``minhash4u`` packing a ragged
+    k = 50 (ceil(50 * 4 / 32) = 7 words a row)."""
     a4 = torch.stack([a, a | 1, a ^ 5, a + 7])
     return {
         "minhash2u": (kmin.minhash2u_cuda, kmin.minhash2u_plain,
                       (idx, cnt, a, a | 1), dict(s=24, b=8, pack=True)),
         "minhash4u": (kmin.minhash4u_cuda, kmin.minhash4u_plain,
                       (idx, cnt, a4), dict(s=24, b=4)),
+        "minhash4u-ragged-pack": (kmin.minhash4u_cuda, kmin.minhash4u_plain,
+                                  (idx, cnt, a4[:, :50].contiguous()),
+                                  dict(s=24, b=4, pack=True)),
         "oph2u": (koph.oph2u_cuda, koph.oph2u_plain,
                   (idx, cnt, a[:1], a[1:2] | 1), dict(s=24, bin_bits=5)),
         "oph4u": (koph.oph4u_cuda, koph.oph4u_plain,
@@ -392,7 +396,7 @@ def _kernel_calls(idx, cnt, a, tok, table):
 
 
 @pytest.mark.parametrize("name", ["minhash2u", "minhash4u", "oph2u",
-                                  "oph4u", "sigbag"])
+                                  "oph4u", "sigbag", "minhash4u-ragged-pack"])
 def test_each_kernel_op_on_meta_tensors(name, no_library):
     """One operation under a ``StepTrace``: the plain version's shapes
     and types, its operands and results counted, no launch."""

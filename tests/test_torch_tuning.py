@@ -180,13 +180,13 @@ def test_blocks_explicit_over_table_over_default(batches, fresh_default):
 
 
 @pytest.mark.parametrize("family,k", [("2u", 64), ("2u", 128), ("4u", 128),
-                                      ("2u", 100)])
+                                      ("2u", 100), ("4u", 100), ("2u", 500)])
 def test_engine_passes_threads_and_picks_fused_pack(batches, monkeypatch,
                                                     family, k):
     """The engine launches with the plan's ``threads`` and asks the kernel
-    for its fused pack exactly when k is a multiple of the launch's group
-    (2U's block cut to k rounded up to 32, as minhash2u_launch cuts it);
-    the packed words equal the reference's either way."""
+    for its fused pack at every k and launch shape where the code width
+    divides 32 (b = 8; a ragged last warp packs too); the packed words
+    equal the reference's."""
     jb, tb = batches
     jfam = _family(family, k, 4)
     fam = family_from_jax(jfam, "cpu")
@@ -206,11 +206,9 @@ def test_engine_passes_threads_and_picks_fused_pack(batches, monkeypatch,
         got = SignatureEngine(fam, b=8, packed=True,
                               blocks={"threads": threads})(tb)
         np.testing.assert_array_equal(to_numpy(got.data), want)
-        group = kmin.pack_group(family == "4u", k, threads)
-        assert calls == [dict(s=S, b=8, threads=threads,
+        assert calls == [dict(s=S, b=8, threads=threads, pack=True,
                               **({"variant": "high"} if family == "2u"
-                                 else {}),
-                              **({"pack": True} if k % group == 0 else {}))]
+                                 else {}))]
 
 
 # ---------------------------------------------------------------------------
