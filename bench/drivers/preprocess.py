@@ -31,6 +31,15 @@ from bench.harness import Ctx, Outcome
 WARM_DRAW = 1 << 40       # the warm-up's coefficients; passes count from 0
 SLOTS = 4                 # pinned host slots: chunks in flight at most
 
+# The CPU tests' size of a cell of this driver (bench/tests/conftest.py
+# `tiny`): what replaces keys of its configuration and of its traffic.
+TINY = ({"n_rows": 300, "k": 64, "row_nnz": {"knots": [20, 45, 60]}},
+        {"chunk_rows": 100, "check_rows": 64, "trace_seconds": 0.2})
+# The program call the window drives, "module:attribute", where the CPU
+# tests plant their faults; a string, so that no import of the program
+# happens before the run's set-up.
+PROGRAM_CALL = "repro_torch.kernels.engine:SignatureEngine.packed_signatures"
+
 
 def family_of(cfg: dict, traffic: dict, coef: dict, device):
     """The program's hash family for one draw of coefficients."""

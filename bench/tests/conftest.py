@@ -4,26 +4,22 @@
 
 Cells run here at tiny sizes on the CPU through the whole harness, the
 program's plain versions in place of its kernels; ``tiny`` shrinks a
-cell's configuration and traffic, nothing else."""
+cell's configuration and traffic by its driver's ``TINY``, nothing else.
+No test file names a driver's size or its program call: each driver
+declares its own, so a cell with a new driver is tested with no edit
+here."""
 
+import copy
+import importlib
 import io
 import sys
 import time
 from pathlib import Path
 
-import pytest
-
 ROOT = Path(__file__).resolve().parents[2]
 for p in (ROOT, ROOT / "src"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
-
-TINY = {
-    "preprocess": ({"n_rows": 300, "k": 64,
-                    "row_nnz": {"knots": [20, 45, 60]}},
-                   {"chunk_rows": 100, "check_rows": 64,
-                    "trace_seconds": 0.2}),
-}
 
 
 def tiny(name: str, **traffic):
@@ -31,10 +27,21 @@ def tiny(name: str, **traffic):
     second; ``traffic`` overrides its traffic parameters further."""
     from bench import harness
     cell = harness.find_cell(name)
-    cfg, tr = TINY[cell.traffic["driver"]]
+    cfg, tr = copy.deepcopy(cell.driver.TINY)
     cell.config.update(cfg)
     cell.traffic.update(tr, **traffic)
     return cell
+
+
+def program_call(driver):
+    """(owner, attribute name) of the call ``driver.PROGRAM_CALL`` names,
+    ``"module:Class.method"``."""
+    module, _, qualname = driver.PROGRAM_CALL.partition(":")
+    *path, attr = qualname.split(".")
+    owner = importlib.import_module(module)
+    for name in path:
+        owner = getattr(owner, name)
+    return owner, attr
 
 
 def execute(cell, *, seed=2**31 + 11, seconds=0.3, trace=False,
@@ -49,8 +56,3 @@ def execute(cell, *, seed=2**31 + 11, seconds=0.3, trace=False,
                              out=out, err=err)
     return result, out.getvalue(), err.getvalue()
 
-
-@pytest.fixture
-def cells():
-    from bench import harness
-    return [w["name"] for w in harness.load_benchmark()["workloads"]]

@@ -2,15 +2,25 @@
 control (the reference in the program's place, one step below the
 configuration's precision) and each fault a cell can have, planted in
 the program underneath a run that is otherwise whole.  One chip: no
-cell has an exchange between chips to leave out."""
+cell has an exchange between chips to leave out.
+
+The control and the sound run cover every cell of ``BENCHMARK.json``.
+The faults here are planted on ``SignatureEngine.packed_signatures``
+and run in every cell whose driver names that call as its
+``PROGRAM_CALL``; a driver that names another call brings its own fault
+tests in a file of its own."""
 
 import pytest
 
+from bench import harness
 from bench.harness import passes
-from conftest import execute, tiny
-from repro_torch.kernels.engine import PackedSignatures, SignatureEngine
+from conftest import execute, program_call, tiny
+from repro_torch.kernels.engine import PackedSignatures
 
-PREPROCESS = ["preprocess.webspam-4u", "preprocess.webspam-2u"]
+CELL_NAMES = [w["name"] for w in harness.load_benchmark()["workloads"]]
+ENGINE_CALL = "repro_torch.kernels.engine:SignatureEngine.packed_signatures"
+ENGINE_CELLS = [n for n in CELL_NAMES if getattr(
+    harness.find_cell(n).driver, "PROGRAM_CALL", None) == ENGINE_CALL]
 # every row of every chunk kept and checked, so one altered word shows
 WHOLE = {"keep_per_chunk": 100, "check_rows": 10**6}
 
@@ -19,7 +29,7 @@ def failed(result):
     return sorted(n for n, c in result["checks"].items() if not passes(c))
 
 
-@pytest.mark.parametrize("name", PREPROCESS)
+@pytest.mark.parametrize("name", CELL_NAMES)
 def test_control_is_not_correct(name):
     result, _, err = execute(tiny(name), control=True)
     assert result["correct"] is False
@@ -27,8 +37,7 @@ def test_control_is_not_correct(name):
     assert "check " in err
 
 
-def _engine_fault(kind):
-    orig = SignatureEngine.packed_signatures
+def _engine_fault(kind, orig):
     last = {}
 
     def broken(self, batch):
@@ -46,16 +55,23 @@ def _engine_fault(kind):
 
 
 @pytest.mark.parametrize("kind", ["unchanged", "half", "altered"])
-@pytest.mark.parametrize("name", PREPROCESS)
+@pytest.mark.parametrize("name", ENGINE_CELLS)
 def test_preprocess_faults_are_caught(monkeypatch, name, kind):
-    monkeypatch.setattr(SignatureEngine, "packed_signatures",
-                        _engine_fault(kind))
-    result, _, _ = execute(tiny(name, **WHOLE))
+    cell = tiny(name, **WHOLE)
+    owner, attr = program_call(cell.driver)
+    monkeypatch.setattr(owner, attr, _engine_fault(kind, getattr(owner, attr)))
+    result, _, _ = execute(cell)
     assert result["correct"] is False
     assert "rows_wrong" in failed(result)
 
 
-@pytest.mark.parametrize("name", PREPROCESS)
+def test_the_engine_faults_run_in_some_cell():
+    """A misspelt ``ENGINE_CALL`` would leave the fault tests with no
+    cell, which pytest reports as a skip, not as a failure."""
+    assert ENGINE_CELLS
+
+
+@pytest.mark.parametrize("name", CELL_NAMES)
 def test_sound_run_is_correct(name):
     result, _, _ = execute(tiny(name, **WHOLE))
     assert result["correct"] is True, result["checks"]

@@ -14,7 +14,7 @@ import torch
 
 from bench import generator as gen
 from bench import harness
-from conftest import ROOT, execute, tiny
+from conftest import ROOT, execute, program_call, tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -52,6 +52,11 @@ def test_cell_found_by_name(name):
     assert len(w["why"]) <= 200
     cell = harness.find_cell(name)
     assert cell.driver.run
+    # the driver's own CPU test size and the call its faults are planted on
+    cfg, tr = cell.driver.TINY
+    assert set(cfg) <= set(cell.config) and set(tr) <= set(cell.traffic)
+    owner, attr = program_call(cell.driver)
+    assert callable(getattr(owner, attr))
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.per_layer:

@@ -1,6 +1,6 @@
-"""Nothing the benchmark runs imports JAX or the JAX package; the
-reference and the yardstick import nothing of the program; nothing reads
-the JAX package's benchmarks."""
+"""Nothing the benchmark runs imports JAX or the JAX package; the plain
+files (the generator, the yardstick and every ``reference*.py``) import
+nothing of the program; nothing reads the JAX package's benchmarks."""
 
 import ast
 import json
@@ -14,7 +14,9 @@ from conftest import ROOT
 BENCH = ROOT / "bench"
 SOURCES = sorted(p for p in BENCH.rglob("*.py"))
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
-PLAIN = {"reference.py", "yardstick.py", "generator.py"}
+# the plain files: the generator, the yardstick and every reference
+PLAIN = sorted({"generator.py", "yardstick.py"} |
+               {p.name for p in BENCH.glob("reference*.py")})
 JAX_HARNESS = "benchmarks" + "/"       # the JAX package's benchmark folder
 
 
@@ -37,7 +39,7 @@ def test_no_jax_and_no_jax_package(path):
     assert JAX_HARNESS not in path.read_text()
 
 
-@pytest.mark.parametrize("name", sorted(PLAIN))
+@pytest.mark.parametrize("name", PLAIN)
 def test_plain_files_import_nothing_of_the_program(name):
     names = top_level_imports(BENCH / name)
     assert names <= {"__future__", "numpy", "torch", "typing"}, names
