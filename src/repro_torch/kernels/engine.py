@@ -27,13 +27,16 @@ Spans: while ``get_tracer().recording()`` (the tracer enabled, or a
 ``torch.profiler`` running; asked once a call), each call records
 ``sig.engine`` (args ``scheme``, ``rows``, ``nnz``, ``k``, ``b``,
 ``threads``, ``shape`` -- ``explicit`` | ``table`` | ``default``, where the
-launch shape came from -- and ``pack`` -- ``kernel`` | ``epilogue`` |
-``none``) with the children ``sig.plan`` (device and shape checks, the
-table lookup), ``sig.counts`` (``nnz_per_row``), ``sig.kernel`` (the
-launcher: argument checks, the operator's dispatch, the launch) and
-``sig.epilogue`` (the plain-PyTorch work after the kernel; absent where
-there is none).  The permutation runner, which runs no kernel, records
-``sig.engine`` and ``sig.plan`` only.
+launch shape came from -- ``pack`` -- ``kernel`` | ``epilogue`` |
+``none`` -- and, on OPH calls, ``densify``) with the children ``sig.plan``
+(device and shape checks, the table lookup), ``sig.counts``
+(``nnz_per_row``), ``sig.kernel`` (the launcher: argument checks, the
+operator's dispatch, the launch) and ``sig.epilogue`` (the plain-PyTorch
+work after the kernel; absent where there is none).  The OPH epilogue's
+own children are ``sig.densify`` (``densify_and_bbit``: the densifier
+and the b-bit mask; absent on the coded sentinel path) and ``sig.pack``
+(the bitstream pack; absent when unpacked).  The permutation runner,
+which runs no kernel, records ``sig.engine`` and ``sig.plan`` only.
 """
 
 from __future__ import annotations
@@ -386,6 +389,8 @@ class SignatureEngine:
                 plan, source = self._checked_plan(batch)
             top.args.update(threads=plan.threads, shape=source,
                             pack=_pack_mode(plan, packed))
+            if plan.densify is not None:
+                top.args["densify"] = plan.densify
             return plan, self._runner(self, batch, plan, packed=packed,
                                       span=tracer.program_span)
 
@@ -464,21 +469,27 @@ def _run_oph(eng, batch, plan, *, packed, span):
     with span("sig.epilogue"):
         return oph_epilogue(raw, k=plan.k, s=plan.s, bin_bits=bin_bits,
                             densify=plan.densify, b=plan.b, packed=packed,
-                            coded=coded)
+                            coded=coded, span=span)
 
 
 def oph_epilogue(raw: torch.Tensor, *, k: int, s: int, bin_bits: int,
                  densify: str, b: int, packed: bool = False,
-                 coded: bool = False) -> torch.Tensor:
+                 coded: bool = False, span=_untraced) -> torch.Tensor:
     """Slice to k bins, densify, keep b bits, optionally pack; shares
     ``densify_and_bbit`` with the reference so both stay bit-exact.
-    ``coded=True``: the kernel already emitted sentinel codes."""
+    ``coded=True``: the kernel already emitted sentinel codes.  ``span``
+    opens ``sig.densify`` and ``sig.pack`` around the two parts."""
     sig = raw[:, :k]
     spec = PackSpec(k, b, sentinel=(densify == "sentinel")) if packed else None
     if coded:
-        return pack_codes(sig, spec.code_bits)
-    sig = densify_and_bbit(sig, 1 << (s - bin_bits), densify, b)
-    return pack_device(sig, spec) if packed else sig
+        with span("sig.pack"):
+            return pack_codes(sig, spec.code_bits)
+    with span("sig.densify"):
+        sig = densify_and_bbit(sig, 1 << (s - bin_bits), densify, b)
+    if not packed:
+        return sig
+    with span("sig.pack"):
+        return pack_device(sig, spec)
 
 
 def _run_oph_perm(eng, batch, plan, *, packed, span):

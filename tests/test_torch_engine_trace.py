@@ -4,8 +4,13 @@ the tracer's clock (``repro_torch.obs.trace``), on the ``torch`` backend.
   * Each call records ``sig.engine`` with its children ``sig.plan``,
     ``sig.counts``, ``sig.kernel`` and ``sig.epilogue`` (the last only
     where plain PyTorch works after the kernel), linked by parent ids, with
-    the launch shape's source and the pack's place in the args; the
-    permutation runner records ``sig.engine`` and ``sig.plan`` only.
+    the launch shape's source, the pack's place and (OPH) the densifier in
+    the args; the permutation runner records ``sig.engine`` and
+    ``sig.plan`` only.
+  * The OPH epilogue records ``sig.densify`` and ``sig.pack`` under
+    ``sig.epilogue``: both when densified and packed, ``sig.densify``
+    alone unpacked, ``sig.pack`` alone where the kernel emitted sentinel
+    codes; a minhash epilogue records neither.
   * The spans record while the tracer is enabled or a ``torch.profiler``
     runs; with neither, a call opens no span and no profiler range.  They
     enter the profiler as ranges only under ``device_annotations=True``.
@@ -90,7 +95,27 @@ CASES = {
                         "epilogue"),
     "oph-2u-raw": (("oph-2u-rotation", 64, 0, False), "oph2u", CHILDREN,
                    "none"),
+    "oph-2u-rotation-k512": (("oph-2u-rotation", 512, 8, True), "oph2u",
+                             CHILDREN, "epilogue"),
+    "oph-2u-sentinel-raw": (("oph-2u-sentinel", 64, 4, False), "oph2u",
+                            CHILDREN, "none"),
+    "oph-4u-optimal": (("oph-4u-optimal", 64, 8, True), "oph4u", CHILDREN,
+                       "epilogue"),
+    "oph-2u-fast": (("oph-2u-fast", 64, 2, False), "oph2u", CHILDREN,
+                    "none"),
     "perm": (("perm", 16, 8, True), "ophperm", ("sig.plan",), "epilogue"),
+}
+# the OPH epilogue's children, by case (none in every other epilogue): the
+# densifier and b-bit mask, then the pack; the coded sentinel path (packed
+# sentinel) packs the kernel's codes alone
+EPILOGUE_KIDS = {
+    "oph-2u-rotation": ("sig.densify", "sig.pack"),
+    "oph-2u-rotation-k512": ("sig.densify", "sig.pack"),
+    "oph-4u-optimal": ("sig.densify", "sig.pack"),
+    "oph-4u-sentinel": ("sig.pack",),
+    "oph-2u-raw": ("sig.densify",),
+    "oph-2u-sentinel-raw": ("sig.densify",),
+    "oph-2u-fast": ("sig.densify",),
 }
 
 
@@ -101,14 +126,33 @@ def _call(case, batch=None, **kw):
     return out.data if packed else out
 
 
+def _densifier(case):
+    """The ``densify`` arg ``sig.engine`` records (None: minhash)."""
+    kind = CASES[case][0][0]
+    return "rotation" if kind == "perm" else (
+        kind.split("-")[2] if kind.startswith("oph-") else None)
+
+
 def _tree(events):
-    """{engine span id: (engine event, [child events in order])}."""
-    engines = {e["args"]["span_id"]: (e, []) for e in events
-               if e["name"] == "sig.engine"}
-    for e in sorted(events, key=lambda e: e["ts"]):
-        if e["name"] != "sig.engine":
-            engines[e["args"]["parent_id"]][1].append(e)
+    """{engine span id: (engine event, [child events in order])}; each
+    event's own children, in order, under its ``"kids"`` (a grandchild
+    nests under its child)."""
+    by_id = {e["args"]["span_id"]: dict(e, kids=[]) for e in events}
+    engines = {}
+    for e in sorted(by_id.values(), key=lambda e: e["ts"]):
+        if e["name"] == "sig.engine":
+            engines[e["args"]["span_id"]] = (e, e["kids"])
+        elif e["args"]["parent_id"] in by_id:
+            by_id[e["args"]["parent_id"]]["kids"].append(e)
     return engines
+
+
+def _in_sequence(parent, kids):
+    """``kids`` lie inside ``parent``, one after another."""
+    t0, t1 = parent["ts"], parent["ts"] + parent["dur"]
+    ends = [t0] + [e["ts"] + e["dur"] for e in kids]
+    return all(prev_end <= e["ts"] and e["ts"] + e["dur"] <= t1
+               for prev_end, e in zip(ends, kids))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -130,11 +174,38 @@ def test_span_tree_and_args(tracer, case):
     assert top["args"]["scheme"] == scheme
     assert top["args"]["threads"] == {"minhash": 128, "oph2u": 256,
                                       "oph4u": 256}.get(scheme[:7])
-    # children lie inside their parent, one after another
-    t0, t1 = top["ts"], top["ts"] + top["dur"]
-    ends = [t0] + [e["ts"] + e["dur"] for e in kids]
-    for prev_end, e in zip(ends, kids):
-        assert prev_end <= e["ts"] and e["ts"] + e["dur"] <= t1
+    assert top["args"].get("densify") == _densifier(case)
+    # children lie inside their parent, one after another; only the OPH
+    # epilogue has children of its own
+    assert _in_sequence(top, kids)
+    for e in kids:
+        want = EPILOGUE_KIDS.get(case, ()) if e["name"] == "sig.epilogue" \
+            else ()
+        assert [g["name"] for g in e["kids"]] == list(want)
+        assert all(g["args"]["parent_id"] == e["args"]["span_id"]
+                   for g in e["kids"])
+        assert _in_sequence(e, e["kids"])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_densify_and_pack_spans_only_in_the_oph_epilogue(tracer, case):
+    tracer.enabled = True
+    _call(case)
+    names = [e["name"] for e in tracer.events()]
+    want = list(EPILOGUE_KIDS.get(case, ()))
+    assert [n for n in names if n in ("sig.densify", "sig.pack")] == want
+
+
+def test_oph_epilogue_called_alone_records_nothing(tracer):
+    """Outside the engine (``kernels.ops``, the smoke script) the
+    epilogue takes no span and records none, tracer on or off."""
+    from repro_torch.kernels.engine import oph_epilogue
+    tracer.enabled = True
+    raw = torch.full((3, 64), -1, dtype=torch.int32)
+    raw[:, 5] = 7
+    words = oph_epilogue(raw, k=64, s=S, bin_bits=6, densify="rotation",
+                         b=8, packed=True)
+    assert words.shape == (3, 16) and tracer.events() == []
 
 
 @pytest.mark.parametrize("kind", ["2u", "4u"])
